@@ -1,0 +1,423 @@
+"""Cost-neutral node coalescing — merge small new nodes into larger types.
+
+The scan-over-groups solver buys each group's tail residue at that group's
+step, so two groups can each buy a half-size node where the sequential
+oracle's pod-interleaved first-fit would have filled one larger node
+(BASELINE config 5: +24 mid-size nodes at equal-or-lower $).  Node count is
+real operational load — kubelet/API traffic, image pulls, ENI/IP slots,
+interruption exposure — so after extraction the solver merges same-
+(provisioner, zone, capacity-type) NEW nodes into one larger catalog type
+whenever:
+
+- the larger type's allocatable fits the combined used resources (including
+  the pod-density row), and
+- its price is <= the sum of the replaced nodes' prices (NEVER spends $ —
+  in-family pricing is linear, so 2x 4xlarge -> 1x 8xlarge is exact), and
+- the provisioner either has no finite limits or the replacement's raw
+  capacity does not exceed the replaced capacity (limits bind on capacity),
+  and
+- no group in the solve carries hostname-scoped constraints (hostname
+  anti-affinity/spread caps are per-NODE: merging two nodes that each hold
+  one matching pod would co-locate them; zone-scoped constraints are safe —
+  merging preserves the zone).
+
+Greedy smallest-first within each bucket; deterministic.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .types import SimNode
+
+#: prov_limits entries at/above this are "no limit" sentinels
+_NO_LIMIT = 3.0e37
+#: pair scan covers only this many smallest nodes per bucket (fragments
+#: cluster at the small end; bounds host time on large solves)
+FRAG_WINDOW = 64
+
+
+def label_feasibility(st) -> np.ndarray:
+    """Host-side [G, C] label/provisioner feasibility — the numpy mirror of
+    the device precompute (tpu.compute_feasibility's gather branch): group g's
+    packed requirement mask admits candidate c's label values, and the
+    group tolerates/fits the candidate's provisioner.  Merge targets must be
+    feasible for every group with pods on the merged node — the solve
+    honored F, coalescing must too (a node_selector pinned to one instance
+    type must never be merged onto another).  Cached on the tensors."""
+    cached = getattr(st, "_host_F", None)
+    if cached is not None:
+        return cached
+    pm = np.asarray(st.pm)                    # [G, K, W] uint32
+    vw = np.asarray(st.cand_vw)               # [C, K]
+    vb = np.asarray(st.cand_vb).astype(np.uint32)
+    kc = np.asarray(st.key_check)             # [K]
+    G, K, _W = pm.shape
+    C = vw.shape[0]
+    lab = np.ones((G, C), dtype=bool)
+    for k in range(K):
+        if not kc[k]:
+            continue
+        words = pm[:, k, :][:, vw[:, k]]      # [G, C]
+        lab &= ((words >> vb[None, :, k]) & 1).astype(bool)
+    gp_ok = np.asarray(st.gp_ok)
+    lab &= gp_ok[np.arange(G)[:, None], np.asarray(st.cand_prov)[None, :]]
+    st._host_F = lab
+    return lab
+
+
+def hostname_constrained(st) -> bool:
+    """Any group whose constraints are scoped to individual nodes — merging
+    nodes could violate them, so coalescing is skipped for the whole solve
+    when per-node group tracking is unavailable."""
+    return bool(
+        (np.asarray(st.g_host_spread) >= 0).any()
+        or (np.asarray(st.g_host_paff) >= 0).any()
+        or (np.asarray(st.g_host_cap) > 0).any()
+    )
+
+
+def hostname_capped_groups(st) -> set:
+    """Group indices whose hostname rules CAP pods per node (spread maxSkew,
+    anti-affinity) — a merge combining two nodes' counts can violate these,
+    so nodes holding them are frozen out of coalescing.  Positive hostname
+    affinity (g_host_paff) is NOT capping: it wants matching pods together,
+    and merging only ever adds pods to a node, so it cannot break (fuzz
+    seed 23: one paff group used to disable coalescing for the whole solve,
+    stranding mergeable fragments in every other group)."""
+    return set(np.flatnonzero(np.asarray(st.g_host_spread) >= 0).tolist())
+
+
+def _pkey(a: SimNode, b: SimNode) -> tuple:
+    """Order-free identity key for the symmetric pair-feasibility cache."""
+    ia, ib = id(a), id(b)
+    return (ia, ib) if ia < ib else (ib, ia)
+
+
+def _domain_index(st, zone: str, ct: str) -> Optional[int]:
+    try:
+        zi = st.zone_names.index(zone)
+        ci = st.ct_names.index(ct)
+    except ValueError:
+        return None
+    return zi * max(1, len(st.ct_names)) + ci
+
+
+def apply_coalesce(st, nodes, used_rows, node_groups, assignments):
+    """Shared tier epilogue: run the merge pass and repoint assignments of
+    absorbed nodes at their replacements.  Both the device tier
+    (tpu._extract) and the native tier (native.solve_tensors_native) call
+    this so the cold-start answer and the warm answer stay the same
+    coalescing contract."""
+    if len(nodes) < 2:
+        return nodes
+    nodes, renames = coalesce_new_nodes(st, nodes, used_rows,
+                                        node_groups=node_groups)
+    if renames:
+        for pod_name, node_name in list(assignments.items()):
+            if node_name in renames:
+                assignments[pod_name] = renames[node_name]
+    return nodes
+
+
+def coalesce_new_nodes(
+    st,
+    nodes: List[SimNode],
+    used_rows: Dict[int, np.ndarray],  # id(node) -> used resource row [R]
+    node_groups: Optional[Dict[int, set]] = None,  # id(node) -> {group idx}
+) -> Tuple[List[SimNode], Dict[str, str]]:
+    """Merge mergeable new nodes; returns (new node list, renames) where
+    ``renames`` maps absorbed old node names -> their replacement's name.
+    Pods are moved onto the replacement nodes; callers fix assignments via
+    the rename map.  ``node_groups`` scopes the label-feasibility check to
+    the groups actually placed on each node; without it (untracked solves)
+    the merge target must be feasible for EVERY group in the solve."""
+    capped = hostname_capped_groups(st)
+    if node_groups is None:
+        # untracked solves can't scope the check per node: all-or-nothing
+        if hostname_constrained(st):
+            return nodes, {}
+        capped = set()
+    # per-node hostname bookkeeping for capped solves: a merge is legal when,
+    # for every hostname slot either node's groups cap, the COMBINED count of
+    # slot-matching pods stays within the stricter cap (anti-affinity
+    # cap 1/0, spread maxSkew).  Group labels are uniform, so counts come
+    # from g_sel_match at group granularity — no per-pod selector matching.
+    # This is what lets bench config 3 (every pod hostname-anti) coalesce its
+    # 1-pod-per-service fragments into shared nodes at equal-or-lower price.
+    g_hs = np.asarray(st.g_host_spread)
+    g_hc = np.asarray(st.g_host_cap)
+    host_active = bool(capped) and (g_hs >= 0).any()
+    pod_group: Dict[str, int] = {}
+    if host_active:
+        for gi, g in enumerate(st.groups):
+            for p in g.pods:
+                pod_group[p.name] = gi
+    S_all = st.g_sel_match.shape[0]
+
+    def _host_state(n: SimNode):
+        """(counts[S], caps[S]) for one node; caps inf where unconstrained."""
+        cnt = np.zeros(S_all, dtype=np.int64)
+        cap = np.full(S_all, np.inf)
+        for p in n.pods:
+            gi = pod_group.get(p.name)
+            if gi is None:
+                # a pod outside this solve (shouldn't happen for new nodes):
+                # be conservative, forbid merging this node
+                cap[:] = -1.0
+                return cnt, cap
+            cnt += st.g_sel_match[:, gi]
+            s = int(g_hs[gi])
+            if s >= 0:
+                cap[s] = min(cap[s], float(g_hc[gi]))
+            # positive hostname affinity (g_host_paff) needs no cap: it wants
+            # matching pods together, and merging only ever ADDS co-residents
+        return cnt, cap
+    F = label_feasibility(st)                             # [G, C]
+    all_groups = frozenset(range(F.shape[0]))
+
+    # candidate rows by provisioner, cheapest-capacity order is not needed:
+    # we pick the cheapest feasible replacement by price
+    by_prov: Dict[str, List[int]] = {}
+    for ci, (prov, _it) in enumerate(st.cand_names):
+        by_prov.setdefault(prov, []).append(ci)
+    prov_index = {n: i for i, n in enumerate(st.prov_names)}
+
+    buckets: Dict[tuple, List[SimNode]] = {}
+    for n in nodes:
+        buckets.setdefault((n.provisioner, n.zone, n.capacity_type), []).append(n)
+
+    out: List[SimNode] = []
+    renames: Dict[str, str] = {}
+    for (prov, zone, ct), group in buckets.items():
+        di = _domain_index(st, zone, ct)
+        pi = prov_index.get(prov)
+        cands = by_prov.get(prov, [])
+        if di is None or pi is None or len(group) < 2 or not cands:
+            out.extend(group)
+            continue
+        limited = bool((np.asarray(st.prov_limits)[pi] < _NO_LIMIT).any())
+        # bucket-local candidate table (spot pricing is NOT linear in size —
+        # zonal discounts vary per type — so the cheapest feasible
+        # replacement can come from any family)
+        cand_ix = np.asarray([ci for ci in cands if st.cand_avail[ci, di]],
+                             dtype=np.int64)
+        if cand_ix.size == 0:
+            out.extend(group)
+            continue
+        c_alloc = np.asarray(st.cand_alloc)[cand_ix]          # [K, R]
+        c_cap = np.asarray(st.cand_cap)[cand_ix]              # [K, R]
+        c_price = np.asarray(st.cand_price)[cand_ix, di]      # [K]
+        c_F = F[:, cand_ix]                                   # [G, K]
+
+        def groups_of(n: SimNode) -> frozenset:
+            if node_groups is None:
+                return all_groups
+            return frozenset(node_groups.get(id(n), all_groups))
+
+        _hstate: Dict[int, tuple] = {}
+
+        def host_state(n: SimNode) -> tuple:
+            got = _hstate.get(id(n))
+            if got is None:
+                got = _host_state(n)
+                _hstate[id(n)] = got
+            return got
+
+        def order_nodes(lst: List[SimNode]) -> List[SimNode]:
+            """Scan order.  Plain solves: smallest-first.  Hostname-capped
+            solves: same, but round-robin across group combinations — the
+            solver creates one group's fragments consecutively, so a
+            smallest-first window would fill with ONE service's nodes, whose
+            pairs all violate the per-node cap; rotating group combos puts
+            mergeable cross-service partners inside the window."""
+            base = sorted(lst, key=lambda n: (size_of(n), n.name))
+            if not host_active:
+                return base
+            seen: Dict[frozenset, int] = {}
+            ranked = []
+            for n in base:
+                key = frozenset(groups_of(n))
+                r = seen.get(key, 0)
+                seen[key] = r + 1
+                ranked.append((r, size_of(n), n.name, n))
+            ranked.sort(key=lambda t: t[:3])
+            return [t[3] for t in ranked]
+
+        # per-node precomputes, cached by identity (merged nodes get entries
+        # as they're created): candidate-feasibility row (AND over the node's
+        # groups — c_F[union].all == c_F[a].all & c_F[b].all, so pair
+        # feasibility is a cheap elementwise AND) and the raw-capacity row
+        # for limit-bound buckets
+        c_F_all = c_F.all(axis=0)
+        _nF: Dict[int, np.ndarray] = {}
+        _ncap: Dict[int, np.ndarray] = {}
+
+        def node_F(n: SimNode) -> np.ndarray:
+            got = _nF.get(id(n))
+            if got is None:
+                gs = groups_of(n)
+                got = c_F_all if gs == all_groups else c_F[sorted(gs)].all(axis=0)
+                _nF[id(n)] = got
+            return got
+
+        def node_cap(n: SimNode) -> np.ndarray:
+            got = _ncap.get(id(n))
+            if got is None:
+                got = st.capacity_row(n.instance_type, n.allocatable)
+                _ncap[id(n)] = got
+            return got
+
+        # smallest-first pair scan: any pair may merge (a cpu-heavy and a
+        # mem-heavy fragment can share one node even when two same-size
+        # fragments can't), so failure of one pair doesn't end the bucket.
+        # The scan is windowed to the FRAG_WINDOW smallest nodes — fragments
+        # live at the small end, and an unwindowed pair scan over a 50k-pod
+        # solve's hundreds of nodes would cost more host time than the solve.
+        # Pair feasibility is symmetric and unaffected by OTHER merges, so
+        # it's cached by node-identity pair and evaluated in one batched
+        # numpy pass per scan (the round-4 cold-path regression was this
+        # loop in per-pair Python).  Merge order is unchanged: first
+        # (i, then smallest j) feasible pair, cheapest candidate, resort,
+        # rescan.
+        pair_best: Dict[tuple, Optional[tuple]] = {}  # (ida,idb) -> (price,k)|None
+        partners: Dict[int, set] = {}  # node id -> ids with a feasible merge
+        _seen: set = set()           # node ids whose window pairs are cached
+        _size: Dict[int, float] = {}  # node id -> used magnitude (sort key)
+        _pinned: List[SimNode] = []  # absorbed nodes held alive: cache keys are
+        # id()s — a GC'd node's id could be reused by a later merged node
+
+        def size_of(n: SimNode) -> float:
+            got = _size.get(id(n))
+            if got is None:
+                got = float(used_rows[id(n)].sum())
+                _size[id(n)] = got
+            return got
+
+        def eval_pairs(window: List[SimNode]) -> None:
+            """Fill pair_best for every uncached pair in the window.  Only
+            pairs touching a node new to the window since the last eval can
+            be uncached (pair feasibility is unaffected by other merges), so
+            enumeration is O(new x W), not O(W^2) per scan."""
+            w = len(window)
+            new_ix = [i for i in range(w) if id(window[i]) not in _seen]
+            if not new_ix:
+                return
+            new_set = set(new_ix)
+            fresh = []
+            for i in new_ix:
+                for j in range(w):
+                    if j == i or (j in new_set and j < i):
+                        continue
+                    a, b = (i, j) if i < j else (j, i)
+                    if _pkey(window[a], window[b]) not in pair_best:
+                        fresh.append((a, b))
+            _seen.update(id(window[i]) for i in new_ix)
+            if not fresh:
+                return
+            ai = np.asarray([i for i, _ in fresh])
+            bj = np.asarray([j for _, j in fresh])
+            used_w = np.stack([used_rows[id(n)] for n in window])     # [W,R]
+            price_w = np.asarray([n.price for n in window])
+            F_w = np.stack([node_F(n) for n in window])               # [W,K]
+            need = used_w[ai] + used_w[bj]                            # [P,R]
+            ok = F_w[ai] & F_w[bj]                                    # [P,K]
+            R = need.shape[1]
+            for r in range(R):
+                ok &= c_alloc[None, :, r] + 1e-6 >= need[:, r, None]
+            ok &= c_price[None, :] <= (price_w[ai] + price_w[bj])[:, None] + 1e-9
+            if limited:
+                cap_w = np.stack([node_cap(n) for n in window])
+                capb = cap_w[ai] + cap_w[bj]
+                for r in range(R):
+                    ok &= c_cap[None, :, r] <= capb[:, r, None] + 1e-6
+            if host_active:
+                # hostname caps: combined slot-matching counts must respect
+                # the stricter of the two nodes' caps on every slot
+                hcnt = np.stack([host_state(n)[0] for n in window])  # [W,S]
+                hcap = np.stack([host_state(n)[1] for n in window])  # [W,S]
+                pair_ok = (
+                    hcnt[ai] + hcnt[bj]
+                    <= np.minimum(hcap[ai], hcap[bj])
+                ).all(axis=1)
+                ok &= pair_ok[:, None]
+            any_p = ok.any(axis=1)
+            hits = np.flatnonzero(any_p)
+            ks = np.empty(len(fresh), dtype=np.int64)
+            if hits.size:
+                ks[hits] = np.where(ok[hits], c_price[None, :], np.inf).argmin(axis=1)
+            for p, (i, j) in enumerate(fresh):
+                a, b = window[i], window[j]
+                if any_p[p]:
+                    pair_best[_pkey(a, b)] = (float(c_price[ks[p]]), int(ks[p]))
+                    partners.setdefault(id(a), set()).add(id(b))
+                    partners.setdefault(id(b), set()).add(id(a))
+                else:
+                    pair_best[_pkey(a, b)] = None
+
+        group = order_nodes(group)
+        while len(group) >= 2:
+            win = min(len(group), FRAG_WINDOW)
+            window = group[:win]
+            eval_pairs(window)
+            hit = None
+            for i in range(win - 1):
+                ps = partners.get(id(window[i]))
+                if not ps:
+                    continue
+                for j in range(i + 1, win):
+                    if id(window[j]) in ps:
+                        best = pair_best[_pkey(window[i], window[j])]
+                        hit = (i, j, best[1],
+                               used_rows[id(window[i])] + used_rows[id(window[j])])
+                        break
+                if hit is not None:
+                    break
+            if hit is None:
+                break
+            i, j, k, need = hit
+            a, b = group[i], group[j]
+            _pinned.extend((a, b))
+            ci = int(cand_ix[k])
+            _prov, type_name = st.cand_names[ci]
+            node = SimNode(
+                instance_type=type_name,
+                provisioner=prov,
+                zone=zone,
+                capacity_type=ct,
+                price=float(c_price[k]),
+                allocatable={
+                    st.vocab.resources[r]: float(st.cand_alloc[ci, r])
+                    for r in range(st.cand_alloc.shape[1])
+                },
+                existing=False,
+            )
+            node.stamp_labels()
+            node.pods = list(a.pods) + list(b.pods)
+            used_rows[id(node)] = need
+            _nF[id(node)] = node_F(a) & node_F(b)
+            if host_active:
+                ca, pa = host_state(a)
+                cb, pb = host_state(b)
+                _hstate[id(node)] = (ca + cb, np.minimum(pa, pb))
+            if node_groups is not None:
+                node_groups[id(node)] = set(groups_of(a) | groups_of(b))
+            renames[a.name] = node.name
+            renames[b.name] = node.name
+            # an absorbed node may itself be a prior replacement:
+            # forward earlier renames pointing at it
+            for old, tgt in list(renames.items()):
+                if tgt in (a.name, b.name):
+                    renames[old] = node.name
+            # absorbed nodes leave the partner graph (their ids must not
+            # surface as hits in later scans)
+            for gone in (id(a), id(b)):
+                for other in partners.pop(gone, ()):  # symmetric cleanup
+                    partners.get(other, set()).discard(gone)
+            group = order_nodes(
+                [n for idx, n in enumerate(group) if idx not in (i, j)] + [node]
+            )
+        out.extend(group)
+    return out, renames

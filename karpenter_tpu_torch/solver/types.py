@@ -1,0 +1,177 @@
+"""Solver input/output types shared by the CPU oracle and the TPU solver."""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+from ..models import labels as L
+from ..models.instancetype import InstanceType
+from ..models.pod import PodSpec, Taint
+from ..models.resources import ResourceList, add, fits, subtract
+
+_node_lock = threading.Lock()
+_node_next = 0
+
+
+def _next_node_idx() -> int:
+    """The process-global auto-name index, lock-atomic: naming and
+    :func:`advance_node_counter` must not race — a thread minting an
+    index below a just-raised floor would hand out a colliding name."""
+    global _node_next
+    with _node_lock:
+        idx = _node_next
+        _node_next += 1
+        return idx
+
+
+def advance_node_counter(floor: int) -> None:
+    """Ensure future auto-named SimNodes get indices STRICTLY ABOVE
+    ``floor``.  Session restore (service/delta.py) needs this: a restarted
+    process's counter starts back at 0, and a fresh proposal named
+    ``node-5`` colliding with a restored chain's ``node-5`` would silently
+    cross-wire assignments — the exact diverged-chain class the snapshot
+    envelope exists to prevent."""
+    global _node_next
+    with _node_lock:
+        _node_next = max(_node_next, floor + 1)
+
+
+@dataclass
+class SimNode:
+    """A (possibly hypothetical) node the solver packs onto.
+
+    Existing cluster nodes and solver-proposed nodes share this shape; the
+    reference's equivalent is core's in-flight machine + state.Cluster node
+    (SURVEY.md §2.2 state.Cluster).
+    """
+
+    instance_type: str
+    provisioner: str
+    zone: str
+    capacity_type: str
+    price: float  # $/hr
+    allocatable: ResourceList
+    labels: Dict[str, str] = field(default_factory=dict)
+    taints: List[Taint] = field(default_factory=list)
+    pods: List[PodSpec] = field(default_factory=list)
+    existing: bool = False  # True for nodes already in the cluster
+    name: str = ""
+    created_at: float = 0.0
+    expires_at: Optional[float] = None
+
+    def __post_init__(self) -> None:
+        if not self.name:
+            self.name = f"node-{_next_node_idx()}"
+
+    def used(self) -> ResourceList:
+        out: ResourceList = {L.RESOURCE_PODS: float(len(self.pods))}
+        for p in self.pods:
+            for k, v in p.requests.items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+    def remaining(self) -> ResourceList:
+        return subtract(self.allocatable, self.used())
+
+    def fits(self, requests: ResourceList) -> bool:
+        req = dict(requests)
+        req.setdefault(L.RESOURCE_PODS, 1.0)
+        return fits(req, self.remaining())
+
+    def stamp_labels(self) -> "SimNode":
+        """Stamp the node's own fields as labels (zone/capacity-type/type/
+        provisioner/hostname), mirroring what the oracle's _create_node and
+        real node objects carry — solver-built nodes must be judged by later
+        waves' label-compat checks the same way labeled cluster nodes are
+        (a label-less node reads as 'absent' for every selector)."""
+        for k, v in (
+            (L.ZONE, self.zone),
+            (L.CAPACITY_TYPE, self.capacity_type),
+            (L.INSTANCE_TYPE, self.instance_type),
+            (L.PROVISIONER_NAME, self.provisioner),
+            (L.HOSTNAME, self.name),
+        ):
+            if v:
+                self.labels.setdefault(k, v)
+        return self
+
+    def snapshot(self) -> "SimNode":
+        """Simulation copy: solvers place pods by mutating ``pods``, and a
+        what-if solve (consolidation) must never leak placements into the
+        caller's live node objects."""
+        return dataclasses.replace(
+            self,
+            pods=list(self.pods),
+            labels=dict(self.labels),
+            taints=list(self.taints),
+            allocatable=dict(self.allocatable),
+        )
+
+
+@dataclass
+class SolveResult:
+    """Outcome of one scheduling solve."""
+
+    nodes: List[SimNode]                    # newly proposed nodes (with pods bound)
+    assignments: Dict[str, str]             # pod name -> node name (incl. existing)
+    infeasible: Dict[str, str]              # pod name -> reason
+    existing_nodes: List[SimNode] = field(default_factory=list)
+    solve_ms: float = 0.0
+    #: host tensorize time spent producing this result (all waves), ms
+    tensorize_ms: float = 0.0
+    #: any wave was served by a transient cold-tier fallback (compile-behind
+    #: / slots-exhausted).  Carried on the result — not on the scheduler —
+    #: so pipelined solves in flight together can't clobber each other's
+    #: flag; the reseat epilogue skips polished cold answers (they are
+    #: superseded once the device program compiles).
+    served_cold: bool = False
+
+    @property
+    def new_node_cost(self) -> float:
+        return sum(n.price for n in self.nodes)
+
+    @property
+    def n_scheduled(self) -> int:
+        return len(self.assignments)
+
+    def summary(self) -> str:
+        per_type: Dict[str, int] = {}
+        for n in self.nodes:
+            per_type[n.instance_type] = per_type.get(n.instance_type, 0) + 1
+        types = ", ".join(f"{k}x{v}" for k, v in sorted(per_type.items()))
+        return (
+            f"{self.n_scheduled} pods -> {len(self.nodes)} new nodes "
+            f"(${self.new_node_cost:.3f}/hr: {types}); {len(self.infeasible)} infeasible"
+        )
+
+
+def node_classes(
+    nodes: Sequence[SimNode], relevant_keys
+) -> Tuple[List[int], List[SimNode]]:
+    """Collapse ``nodes`` into label/taint equivalence classes for memoized
+    requirement-algebra checks (consolidation.compat_matrix,
+    native.existing_compat).  Two nodes share a class iff they agree on
+    every label key in ``relevant_keys`` (the keys any pod/group requirement
+    references — a per-node hostname label must not split an otherwise
+    uniform fleet when nothing selects on hostname) and carry identical
+    taints.  Returns (class index per node, representative node per class);
+    any check that reads only requirement keys + taints is class-invariant.
+    """
+    cls_idx: List[int] = []
+    cls_rep: List[SimNode] = []
+    cls_of: Dict[tuple, int] = {}
+    for node in nodes:
+        ckey = (
+            tuple(sorted((k, v) for k, v in node.labels.items()
+                         if k in relevant_keys)),
+            tuple((t.key, t.value, t.effect) for t in node.taints),
+        )
+        c = cls_of.get(ckey)
+        if c is None:
+            c = cls_of[ckey] = len(cls_rep)
+            cls_rep.append(node)
+        cls_idx.append(c)
+    return cls_idx, cls_rep
