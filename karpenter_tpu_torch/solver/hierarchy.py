@@ -13,18 +13,22 @@ The port of the reference package's ``solver/hierarchy.py``:
 3. **Price loop** — blocks contend for provisioner limits.  A
    fixed-iteration dual ascent on the mirror-descent schedule prices
    over-subscribed provisioners up; each price wave scores every pod group
-   through the packed-score kernel (:func:`packed_scan_scores`) to find the
-   groups that would buy from a hot provisioner, and the contending blocks
-   re-solve against the adjusted prices — again one dispatch per wave.
+   through the fused packed-score kernel (:func:`price_step_scores`) to find
+   the groups that would buy from a hot provisioner, and the contending
+   blocks re-solve against the adjusted prices — again one dispatch per
+   wave.
 4. **Repair** — the host enforces limits exactly and re-seats stragglers
    through the warm-start path (``warmstart.delta_solve``); a cross-block
    tail pass then repacks each block's underfull tail node, shipping the
    cheaper of before/after.
 
-The price loop's score runs PACKED: int8 feasibility and bf16 prices.  On a
-CUDA tensor :func:`packed_scan_scores` launches the hand-written kernel
-(``csrc/packed_score.cu``) or raises; :func:`packed_scan_scores_plain` is
-its plain PyTorch version, taken only for CPU tensors.
+The price loop's score runs PACKED: int8 feasibility and bf16 prices.  Both
+entries of the hand-written kernel (``csrc/packed_score.cu``) launch on
+CUDA tensors or raise, and take their plain PyTorch versions only for CPU
+tensors: :func:`packed_scan_scores` (the reference kernel's function, a
+bf16 price row in) and :func:`price_step_scores` (the price loop's step:
+feasibility, base prices and owners resident on the device, the adjusted
+bf16 row built by the kernel from ``exp(lam)``, one ``[2, G]`` buffer out).
 
 Unlike the reference, a failing wave is not caught here: there is no
 compile to wait for and no hang guard, so a fault surfaces to the caller.
@@ -317,6 +321,136 @@ def packed_scan_scores(
     return cost, idx
 
 
+def split_scores(out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(cost f32 [G], idx i32 [G])`` views of a :func:`price_step_scores`
+    buffer (row 0 holds the cost's bits, row 1 the index)."""
+    return out[0].view(torch.float32), out[1]
+
+
+def price_step_scores_plain(
+    f_packed: torch.Tensor, cand_price: torch.Tensor,
+    cand_prov: torch.Tensor, mult: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of the price loop's score step: the candidate
+    prices under the multipliers ``mult[P]`` (``price_adjusted``: 3.0e38/inf
+    rows stay put), the cheapest domain per candidate, packed to bf16
+    (round to nearest even, as ``pack_scores``), then
+    :func:`packed_scan_scores_plain`.
+    Returns one int32 ``[2, G]`` buffer: the cost's f32 bits, then the
+    index (see :func:`split_scores`)."""
+    m = mult[cand_prov.to(torch.int64)][:, None]
+    adj = torch.where(cand_price >= 1e37, cand_price, cand_price * m)
+    row = adj.amin(dim=1).to(torch.bfloat16)
+    cost, idx = packed_scan_scores_plain(f_packed, row)
+    return torch.stack([cost.view(torch.int32), idx])
+
+
+def price_step_scores(
+    f_packed: torch.Tensor, cand_price: torch.Tensor,
+    cand_prov: torch.Tensor, mult: torch.Tensor,
+) -> torch.Tensor:
+    """The price loop's score step, :func:`price_step_scores_plain`'s
+    function: int8 feasibility ``[G, C]``, base candidate prices f32
+    ``[C, D]`` (3.0e38 or inf where a candidate has no offering), owning
+    provisioner int32 ``[C]`` (each in ``[0, P)``) and ``exp(lam)`` f32
+    ``[P]``.  Returns the int32 ``[2, G]`` buffer of :func:`split_scores`.
+
+    On CUDA tensors this launches the fused kernel (``csrc/packed_score.cu``,
+    ``price_step_score_launch``) once on the current stream, or raises;
+    only CPU tensors take the plain version."""
+    args = (f_packed, cand_price, cand_prov, mult)
+    if all(t.device.type == "cpu" for t in args):
+        return price_step_scores_plain(*args)
+    from ..kernels import PRICE_STEP_SCORE
+
+    dev = f_packed.device
+    if dev.type != "cuda" or any(t.device != dev for t in args):
+        raise ValueError(
+            "price_step_scores: tensors on "
+            f"{[str(t.device) for t in args]}; all must be on one CUDA "
+            "device")
+    want = (torch.int8, torch.float32, torch.int32, torch.float32)
+    if tuple(t.dtype for t in args) != want:
+        raise TypeError(
+            "price_step_scores takes int8 f, f32 cand_price, int32 "
+            f"cand_prov and f32 mult, got {[t.dtype for t in args]}")
+    if (f_packed.dim() != 2 or cand_price.dim() != 2 or cand_prov.dim() != 1
+            or mult.dim() != 1 or cand_price.shape[0] != f_packed.shape[1]
+            or cand_prov.shape[0] != f_packed.shape[1]
+            or f_packed.shape[1] == 0 or cand_price.shape[1] == 0
+            or mult.shape[0] == 0):
+        raise ValueError(
+            "price_step_scores shapes: f "
+            f"{tuple(f_packed.shape)}, cand_price {tuple(cand_price.shape)}, "
+            f"cand_prov {tuple(cand_prov.shape)}, mult {tuple(mult.shape)}")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("price_step_scores takes contiguous tensors")
+    G, C = f_packed.shape
+    out = torch.empty((2, G), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = PRICE_STEP_SCORE.launcher()(
+            f_packed.data_ptr(), cand_price.data_ptr(), cand_prov.data_ptr(),
+            mult.data_ptr(), out.data_ptr(), out.data_ptr() + 4 * G, G, C,
+            cand_price.shape[1], stream)
+    if rc != 0:  # also a C past the shared-memory price row's cap
+        raise RuntimeError(
+            f"price_step_score launch failed: CUDA error {rc}")
+    PRICE_STEP_SCORE.launches += 1
+    return out
+
+
+def score_inputs(st, base) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The price loop's score inputs on the host: int8 feasibility
+    ``[G, C]``, the first ``C`` rows of the padded base ``cand_price`` (f32
+    ``[C, D]``, the no-offering cells at the 3.0e38 sentinel) and
+    ``cand_prov`` (int32 ``[C]``, checked to lie in ``[0, P)``)."""
+    from ..models.tensorize import pack_feasibility
+    from .relax import _host_feasibility
+
+    C = st.C
+    prov = np.ascontiguousarray(base[0]["cand_prov"][:C], dtype=np.int32)
+    if C and not 0 <= int(prov.min()) <= int(prov.max()) < len(st.prov_names):
+        raise ValueError("cand_prov holds a provisioner index out of range")
+    return (pack_feasibility(_host_feasibility(st)),
+            np.ascontiguousarray(base[0]["cand_price"][:C], dtype=np.float32),
+            prov)
+
+
+class ScoreStep:
+    """The price loop's score step on inputs resident on ``device``:
+    feasibility, base prices and owners are uploaded once, here.  Each call
+    writes ``exp(lam)`` into a reused host buffer, copies it up, launches
+    :func:`price_step_scores` once and copies its ``[2, G]`` buffer back
+    once; on CUDA the host buffers are pinned, both copies are asynchronous
+    and the call waits once, for the stream."""
+
+    def __init__(self, f: np.ndarray, cand_price: np.ndarray,
+                 cand_prov: np.ndarray, n_prov: int, device) -> None:
+        dev = torch.device(device)
+        pin = dev.type == "cuda"
+        self.device = dev
+        self.inputs = tuple(torch.from_numpy(a).to(dev)
+                            for a in (f, cand_price, cand_prov))
+        self.mult = torch.empty(n_prov, dtype=torch.float32, device=dev)
+        self.mult_host = torch.empty(n_prov, dtype=torch.float32,
+                                     pin_memory=pin)
+        self.out_host = torch.empty((2, f.shape[0]), dtype=torch.int32,
+                                    pin_memory=pin)
+        self._mult_np = self.mult_host.numpy()
+
+    def __call__(self, lam: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """``(cost f32 [G], idx i32 [G])`` on the host under duals ``lam``."""
+        self._mult_np[:] = np.exp(lam)  # float64 -> float32, as astype
+        self.mult.copy_(self.mult_host, non_blocking=True)
+        self.out_host.copy_(price_step_scores(*self.inputs, self.mult),
+                            non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        cost, idx = split_scores(self.out_host)
+        return cost.numpy().copy(), idx.numpy().copy()
+
+
 # ---------------------------------------------------------------------------
 # price loop helpers (host-side dual bookkeeping)
 # ---------------------------------------------------------------------------
@@ -421,8 +555,7 @@ def _solve_hierarchical(
     registry: Optional[Registry] = None,
     stats: Optional[dict] = None,
 ) -> Optional[SolveResult]:
-    from ..models.tensorize import pack_feasibility, pack_scores
-    from .relax import _host_feasibility, mirror_eta
+    from .relax import mirror_eta
     from .tpu import MEGA_MAX_SLOTS
 
     t0 = time.perf_counter()
@@ -474,7 +607,8 @@ def _solve_hierarchical(
 
     # ---- price ascent (fixed budget, mirror-descent schedule) ----------
     lam = np.zeros(P, dtype=np.float64)
-    f_dev: Optional[torch.Tensor] = None
+    step: Optional[ScoreStep] = None
+    score_setup_ms = 0.0
     for t in range(price_budget):
         usage = np.zeros((len(masks), P, st.R), dtype=np.float64)
         for bi, out in enumerate(outs):
@@ -487,23 +621,19 @@ def _solve_hierarchical(
         eta = float(mirror_eta(np.float32(t)))
         lam = np.minimum(np.where(hot, lam + eta * (v - 1.0),
                                   lam * 0.5), 8.0)
-        # adjust the PADDED price tensor (3.0e38 rows stay put) and slice
-        # the real candidates back out for the kernel
-        adj_padded = price_adjusted(base[0]["cand_price"],
-                                    base[0]["cand_prov"], lam)
-        # packed hot path: which provisioner each group would buy NOW,
-        # under the adjusted prices — int8 feasibility, bf16 prices
-        # (cheapest offering per candidate: min over the domain axis)
-        adj = adj_padded[:st.C].min(axis=1)
-        ts = time.perf_counter()
-        if f_dev is None:
-            f_dev = torch.from_numpy(
-                pack_feasibility(_host_feasibility(st))).to(dev)
-        cost_t, best_t = packed_scan_scores(f_dev, pack_scores(adj).to(dev))
-        _cost, best = cost_t.cpu().numpy(), best_t.cpu().numpy()
-        score_ms.append((time.perf_counter() - ts) * 1000.0)
         want_hot = np.zeros(st.G, dtype=bool)
         if st.C:
+            # packed hot path: which provisioner each group would buy NOW,
+            # under the adjusted prices — one fused launch on resident
+            # feasibility / base prices / owners (the card builds the
+            # adjusted bf16 price row), exp(lam) up, one buffer back
+            if step is None:
+                tsu = time.perf_counter()
+                step = ScoreStep(*score_inputs(st, base), P, dev)
+                score_setup_ms = (time.perf_counter() - tsu) * 1000.0
+            ts = time.perf_counter()
+            _cost, best = step(lam)
+            score_ms.append((time.perf_counter() - ts) * 1000.0)
             prov_of_best = np.asarray(st.cand_prov)[best]
             want_hot = hot[prov_of_best] & (_cost < 1e37)
         contending = [
@@ -512,6 +642,9 @@ def _solve_hierarchical(
         ]
         if not contending:
             break
+        # the re-solve takes the PADDED adjusted prices (3.0e38 rows stay)
+        adj_padded = price_adjusted(base[0]["cand_price"],
+                                    base[0]["cand_prov"], lam)
         sub_entries, _ = build_block_entries(
             solver, st, [masks[bi] for bi in contending],
             [budgets[bi] for bi in contending], dims, base=base,
@@ -665,7 +798,8 @@ def _solve_hierarchical(
         repair_pods=n_repair, tail_repack_pods=n_tail,
         tensorize_ms=tensorize_s * 1000.0,
         partition_ms=partition_ms, entries_ms=entries_ms,
-        wave_ms=wave_ms, score_ms=score_ms,
+        wave_ms=wave_ms, score_ms=score_ms, score_setup_ms=score_setup_ms,
+        price_lam=lam.tolist(),
         repair_ms=repair_ms, total_ms=elapsed_ms,
         n_pods=len(pods),
     )

@@ -1,4 +1,4 @@
-"""The port on the CUDA card: each hand-written kernel against its plain
+"""The port on the CUDA card: each hand-written kernel entry against its plain
 PyTorch version, and the hierarchical solve on ``cuda`` against ``cpu``.
 
 Marked ``cuda``; every test skips (from a fixture) where no CUDA device is
@@ -6,9 +6,13 @@ present.  The card-side suite runs without the reference package (the
 machine with the card has no JAX), so it skips the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
-"""
 
-import os
+Both entries of ``csrc/packed_score.cu`` must be byte-equal to their plain
+versions: ``packed_scan_scores`` on random rows, at 65,536 x 1,024 (beyond
+L2), at every base-pointer offset mod 16, and past the shared-memory cap
+(the unstaged variant); ``price_step_scores`` on the CPU suite's cases
+(``chip_smoke.step_cases``) and at every offset.
+"""
 
 import numpy as np
 import pytest
@@ -32,24 +36,63 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("G,C,p", [(5, 7, 0.6), (40, 425, 0.3),
-                                   (48, 448, 0.05), (4096, 1024, 0.5),
-                                   (3, 1, 0.0)])
-def test_packed_score_kernel_byte_equal_to_plain(cuda, G, C, p):
+def _packed(f, pr, cuda):
     from karpenter_tpu_torch.kernels import PACKED_SCORE
 
-    rng = np.random.default_rng(G * 7 + C)
-    f = torch.from_numpy(pack_feasibility(rng.random((G, C)) < p))
-    price = rng.uniform(0.1, 9.0, size=C).astype(np.float32)
-    price[C // 2:] = price[: C - C // 2]
-    pr = pack_scores(price)
     before = PACKED_SCORE.launches
     c_k, i_k = hier.packed_scan_scores(f.to(cuda), pr.to(cuda))
     torch.cuda.synchronize()
     assert PACKED_SCORE.launches == before + 1
-    c_p, i_p = hier.packed_scan_scores_plain(f, pr)
+    c_p, i_p = hier.packed_scan_scores_plain(f.cpu(), pr.cpu())
     assert c_k.cpu().numpy().tobytes() == c_p.numpy().tobytes()
     assert i_k.cpu().numpy().tobytes() == i_p.numpy().tobytes()
+
+
+@pytest.mark.parametrize("G,C,p", [(5, 7, 0.6), (40, 425, 0.3),
+                                   (48, 448, 0.05), (4096, 1024, 0.5),
+                                   (3, 1, 0.0), (65536, 1024, 0.5)])
+def test_packed_score_kernel_byte_equal_to_plain(cuda, G, C, p):
+    rng = np.random.default_rng(G * 7 + C)
+    f = torch.from_numpy(pack_feasibility(
+        rng.random((G, C), dtype=np.float32) < p))
+    price = rng.uniform(0.1, 9.0, size=C).astype(np.float32)
+    price[C // 2:] = price[: C - C // 2]
+    _packed(f, pack_scores(price), cuda)
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_both_entries_at_every_row_alignment(cuda, offset):
+    # f as a contiguous view at a byte offset into a larger buffer: every
+    # row's head, 16-byte body and tail shift with it
+    import chip_smoke as cs
+
+    feas, base, prov, lam = cs.step_case(40, 425, 6, 3, "mid", seed=offset)
+    G, C = feas.shape
+    flat = torch.zeros(G * C + 16, dtype=torch.int8, device=cuda)
+    f = flat[offset:offset + G * C].view(G, C)
+    f.copy_(torch.from_numpy(pack_feasibility(feas)).to(cuda))
+    assert f.is_contiguous() and f.data_ptr() % 16 == offset % 16
+    row = pack_scores(hier.price_adjusted(base, prov, lam).min(axis=1))
+    _packed(f, row, cuda)
+    cs.check_step_entry(f, base, prov, lam)
+
+
+def test_packed_score_unstaged_beyond_the_shared_memory_cap(cuda):
+    C = 120_000  # a staged row of 2 * (C + 8) bytes > 227 KB
+    rng = np.random.default_rng(5)
+    f = torch.from_numpy(pack_feasibility(rng.random((6, C)) < 0.01))
+    price = rng.uniform(0.1, 9.0, size=C).astype(np.float32)
+    _packed(f, pack_scores(price), cuda)
+
+
+def test_price_step_kernel_byte_equal_on_every_case(cuda):
+    import chip_smoke as cs
+
+    for name, case in cs.step_cases(large=True).items():
+        feas, base, prov, lam = case
+        f = torch.from_numpy(pack_feasibility(feas)).to(cuda)
+        # raises chip_smoke.SmokeFailure unless byte-equal
+        assert cs.check_step_entry(f, base, prov, lam) == 0.0, name
 
 
 def test_packed_score_rejects_bad_inputs(cuda):
@@ -66,6 +109,33 @@ def test_packed_score_rejects_bad_inputs(cuda):
         hier.packed_scan_scores(f, p.cpu())
 
 
+def test_price_step_rejects_bad_inputs(cuda):
+    f = torch.zeros(4, 8, dtype=torch.int8, device=cuda)
+    base = torch.ones(8, 3, dtype=torch.float32, device=cuda)
+    prov = torch.zeros(8, dtype=torch.int32, device=cuda)
+    mult = torch.ones(2, dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        hier.price_step_scores(f, base.double(), prov, mult)
+    with pytest.raises(TypeError):
+        hier.price_step_scores(f, base, prov.long(), mult)
+    with pytest.raises(ValueError):
+        hier.price_step_scores(f, base[:7], prov, mult)
+    with pytest.raises(ValueError):
+        hier.price_step_scores(f, base, prov[:7], mult)
+    with pytest.raises(ValueError):
+        hier.price_step_scores(f, base[:, :0], prov, mult)
+    with pytest.raises(ValueError):
+        hier.price_step_scores(f, base.t().contiguous().t(), prov, mult)
+    with pytest.raises(ValueError):
+        hier.price_step_scores(f, base, prov, mult.cpu())
+    # odd C: 8 staged copies of (C + 15) // 8 * 8 bf16 past 227 KB
+    big = torch.zeros(1, 14_521, dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError):
+        hier.price_step_scores(
+            big, torch.ones(14_521, 1, device=cuda),
+            torch.zeros(14_521, dtype=torch.int32, device=cuda), mult)
+
+
 def test_hierarchical_solve_cuda_matches_cpu(cuda, monkeypatch):
     import chip_smoke as cs
     from karpenter_tpu_torch.models.catalog import generate_catalog
@@ -77,4 +147,6 @@ def test_hierarchical_solve_cuda_matches_cpu(cuda, monkeypatch):
     rg, rc = out["cuda"][4], out["cpu"][4]
     assert out["cuda"][2] == out["cpu"][2]
     assert cs.plan(rg) == cs.plan(rc) or cs.placements_tie(rg, rc)
-    assert out["cuda"][7]["packed_score"] >= 1
+    launches = out["cuda"][7]
+    assert launches["price_step_score"] == out["cuda"][5]["price_iters"] >= 1
+    assert launches["packed_score"] == 0

@@ -134,23 +134,23 @@ def contended(env, disjoint):
     bought = cpu_bought(st, res_free.nodes)
     limit = round(bought * 0.99, 1)
     calls = []
-    real = hier.packed_scan_scores
+    real = hier.price_step_scores
 
-    def counting(f, p):
-        calls.append((tuple(f.shape), tuple(p.shape)))
-        return real(f, p)
+    def counting(*args, **kw):
+        calls.append(tuple(tuple(t.shape) for t in args))
+        return real(*args, **kw)
 
     ref_stats, stats = {}, {}
     ref_res = ref_hier.solve_hierarchical(
         env["ref_sched"], env["ref_pods"], [provisioner(ref_prov, limit)],
         env["ref_cat"], stats=ref_stats)
-    hier.packed_scan_scores = counting
+    hier.price_step_scores = counting
     try:
         res = hier.solve_hierarchical(
             env["sched"], env["pods"], [provisioner(t_prov, limit)],
             env["cat"], stats=stats)
     finally:
-        hier.packed_scan_scores = real
+        hier.price_step_scores = real
     return dict(limit=limit, bought=bought, bought_ref=bought_ref, st=st,
                 ref_res=ref_res, ref_stats=ref_stats, res=res, stats=stats,
                 calls=calls)
@@ -201,10 +201,12 @@ def test_contended_limit_takes_price_iterations(contended):
     assert stats["price_iters"] >= 1
     assert stats["price_iters"] == ref_stats["price_iters"]
     assert stats["dispatches"] == stats["waves"] == ref_stats["waves"]
-    # every price iteration scored the groups through the packed function
+    # every price iteration scored the groups through the fused packed step
     assert len(contended["calls"]) == stats["price_iters"]
     st = contended["st"]
-    assert all(c == ((st.G, st.C), (st.C,)) for c in contended["calls"])
+    D, P = st.cand_price.shape[1], len(st.prov_names)
+    assert all(c == ((st.G, st.C), (st.C, D), (st.C,), (P,))
+               for c in contended["calls"])
 
 
 def test_contended_limit_matches_reference(contended):
