@@ -30,9 +30,24 @@ no result):
    loop's score step as the host pays it, fused and through the host
    price chain with the price-row entry;
 6. parity — a smaller hierarchical batch with a binding limit solved on
-   ``cuda`` and on ``cpu``: the node plans must agree.
+   ``cuda`` and on ``cpu``: the node plans must agree;
+7. relax — the relax rung on the flat path: 50,000 pods in 20
+   complementary unconstrained deployments, and a 5,000-pod batch whose
+   first 10 deployments carry a zone spread, each solved on ``cuda`` with
+   ``relax=False`` (the scan) and at the default (the rung).  The shipped
+   plan must cost no more than the scan's, seat every pod exactly once,
+   hold node capacity and provisioner limits, count no ``fallback``, run
+   the relax program on the card, and equal the ``device="cpu"`` solve;
+   the program is also timed alone on the 50,000-pod inputs;
+8. consolidation — the deletability screen of a 5,000-node fleet on
+   ``cuda`` and on ``cpu`` (equal vectors), and a 16-candidate what-if
+   sweep over a 300-node cluster, batched in one dispatch, against the
+   serial loop of what-if solves (equal decisions).
 
-The last two lines are the kernel table (``{"kernels": [...]}``) and
+Launch counts (the hand-written kernels', and the relax and screen
+programs' runs) are zeroed just before each path is driven and read just
+after; no hand-written kernel is on the relax or consolidation path, so
+their kernel counts read 0 there.  The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -40,6 +55,7 @@ Everything is also written to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -62,6 +78,23 @@ RECORD: dict = {}
 
 class SmokeFailure(Exception):
     pass
+
+
+class _Faults(logging.Handler):
+    """Collects the warnings the port logs where it catches a failure and
+    falls back (the relax rung shipping the scan after an exception, a
+    sweep dispatch served serially): a device fault must not pass as a
+    fallback."""
+
+    def __init__(self) -> None:
+        super().__init__(level=logging.WARNING)
+        self.records: list = []
+
+    def emit(self, record) -> None:
+        self.records.append(f"{record.name}: {record.getMessage()}")
+
+
+FAULTS = _Faults()
 
 
 def emit(phase: str, **fields) -> None:
@@ -137,7 +170,7 @@ def limited_solve(device, pods, catalog):
     it bought.  Returns (scheduler, tensors, limit, free, limited, stats,
     limited-solve wall ms, launches per kernel in the limited solve)."""
     from karpenter_tpu_torch import kernels
-    from karpenter_tpu_torch.metrics import HIER_SOLVES
+    from karpenter_tpu_torch.metrics import HIER_SOLVES, RELAX_DURATION
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
 
     sched = BatchScheduler(backend="auto", device=device)
@@ -149,6 +182,8 @@ def limited_solve(device, pods, catalog):
 
     hier_before = sched.registry.counter(HIER_SOLVES).get(
         {"path": "hierarchical"})
+    relax_before = _outcomes(sched.registry)
+    relax_s0 = _hist_sum(sched.registry, RELAX_DURATION)
     kernels.reset_counts()
     t0 = time.perf_counter()
     res = sched.solve(pods, [provisioner(limit)], catalog)
@@ -161,6 +196,15 @@ def limited_solve(device, pods, catalog):
     check(sched.registry.counter(HIER_SOLVES).get({"path": "hierarchical"})
           == hier_before + 1, "limited solve did not route hierarchically")
     stats = dict(sched.hier_stats)
+    # every deployment carries a zone spread: the relax rung has nothing
+    # to lift and counts one skip (its partition pass is relax_ms)
+    stats["relax_outcomes"] = {o: v - relax_before[o] for o, v in
+                               _outcomes(sched.registry).items()}
+    stats["relax_ms"] = (_hist_sum(sched.registry, RELAX_DURATION)
+                         - relax_s0) * 1000.0
+    check(stats["relax_outcomes"]["skipped"] == 1
+          and sum(stats["relax_outcomes"].values()) == 1,
+          "the limited solve's relax rung did not skip")
     check(stats.get("price_iters", 0) >= 1, "no price iteration ran")
     shipped = cpu_bought(st, res.nodes)
     check(shipped <= limit * (1.0 + 1e-6),
@@ -446,6 +490,7 @@ def phase_slice(nd: int, per: int):
          score_setup_ms=stats["score_setup_ms"], price_lam=stats["price_lam"],
          repair_ms=stats["repair_ms"], repair_pods=stats["repair_pods"],
          hier_total_ms=stats["total_ms"],
+         relax_outcomes=stats["relax_outcomes"], relax_ms=stats["relax_ms"],
          nodes=len(res.nodes), cost=res.new_node_cost,
          infeasible=len(res.infeasible), cpu_limit=limit,
          cpu_shipped=shipped, free_nodes=len(free.nodes),
@@ -665,6 +710,409 @@ def phase_parity(nd: int, per: int):
          torch_threads=torch.get_num_threads())
 
 
+# ---------------------------------------------------------------------------
+# relax and consolidation scenarios
+# ---------------------------------------------------------------------------
+
+
+def relax_pods(n_per: int, n_dep: int = 20, spread_deps: int = 0,
+               tag: str = "rx"):
+    """Complementary-resource deployments cycling cpu-heavy (1.0–2.5 cpu,
+    0.25 GiB), memory-heavy (0.1–0.25 cpu, 6–10 GiB) and balanced
+    (0.5–1.5 cpu, 2–4 GiB) — the batch where a global packing beats
+    per-group first-fit.  The first ``spread_deps`` deployments carry a
+    hard zone spread (the reference bench's ``_relax_pods``)."""
+    from karpenter_tpu_torch.models.pod import (
+        LabelSelector,
+        PodSpec,
+        TopologySpreadConstraint,
+    )
+
+    pods = []
+    for d in range(n_dep):
+        kind = d % 3
+        if kind == 0:
+            cpu, mem = 1.0 + (d % 4) * 0.5, 0.25 * GIB
+        elif kind == 1:
+            cpu, mem = 0.1 + 0.05 * (d % 4), (6.0 + 2 * (d % 3)) * GIB
+        else:
+            cpu, mem = 0.5 * (1 + d % 3), 2.0 * GIB * (1 + d % 2)
+        sel = LabelSelector.of({"app": f"{tag}{d}"})
+        tsc = ([TopologySpreadConstraint(1, ZONE, "DoNotSchedule", sel)]
+               if d < spread_deps else [])
+        for i in range(n_per):
+            pods.append(PodSpec(
+                name=f"{tag}{d}-{i}", labels={"app": f"{tag}{d}"},
+                requests={"cpu": cpu, "memory": mem},
+                topology_spread=list(tsc), owner_key=f"{tag}{d}"))
+    return pods
+
+
+def check_plan(pods, res, provisioners, st) -> None:
+    """Every pod seated exactly once, no node over its allocatable, every
+    provisioner within its limits."""
+    names = [p.name for p in pods]
+    seated = [q.name for n in res.nodes for q in n.pods]
+    check(not res.infeasible, f"{len(res.infeasible)} pods left infeasible")
+    check(sorted(seated) == sorted(names) and set(res.assignments)
+          == set(names), "a pod is not seated exactly once")
+    check(all(v >= -1e-6 for n in res.nodes for v in n.remaining().values()),
+          "a node is over its allocatable")
+    for prov in provisioners:
+        for r, limit in (prov.limits or {}).items():
+            used = sum(float(st.capacity_row(n.instance_type, n.allocatable)[
+                st.vocab.resources.index(r)])
+                for n in res.nodes if n.provisioner == prov.name)
+            check(used <= limit * (1 + 1e-6),
+                  f"provisioner {prov.name} over its {r} limit")
+
+
+def _outcomes(registry) -> dict:
+    from karpenter_tpu_torch.metrics import RELAX_OUTCOMES, RELAX_TOTAL
+
+    return {o: registry.counter(RELAX_TOTAL).get({"outcome": o})
+            for o in RELAX_OUTCOMES}
+
+
+def _hist_sum(registry, name) -> float:
+    return sum(registry.histogram(name).sums.values())
+
+
+def _synced_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1000.0
+
+
+def count_launches(fn):
+    """CUDA kernel launches of one call of ``fn`` (torch.profiler's
+    ``cudaLaunchKernel`` runtime calls); None when the profiler records
+    none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.key.startswith("cudaLaunchKernel"))
+    return n or None
+
+
+def _first_diff(a, b):
+    """The first differing entry of two node plans, by type, zone, price
+    and pod count (None when the plans are equal)."""
+    for x, y in zip(plan(a), plan(b)):
+        if x != y:
+            return [list(x[:4]) + [len(x[4])], list(y[:4]) + [len(y[4])],
+                    sorted(set(x[4]) ^ set(y[4]))[:4]]
+    return None if plan(a) == plan(b) else "node counts differ"
+
+
+def relax_case(pods, catalog):
+    """The scan and the default solve of ``pods`` on the card, then the
+    default solve on the host; checks and numbers of the rung."""
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.metrics import RELAX_DURATION, Registry
+    from karpenter_tpu_torch.solver import relax
+    from karpenter_tpu_torch.solver.relax import RELAX_PROGRAM
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    provs = [provisioner()]
+    reg = Registry()
+    sched = BatchScheduler(backend="tpu", registry=reg)
+    scan, scan_ms = _synced_ms(lambda: sched.solve(pods, provs, catalog,
+                                                   relax=False))
+    before = _outcomes(reg)
+    relax_s0 = _hist_sum(reg, RELAX_DURATION)
+    RELAX_PROGRAM.reset()
+    kernels.reset_counts()
+    shipped, shipped_ms = _synced_ms(lambda: sched.solve(pods, provs,
+                                                         catalog))
+    runs = dict(RELAX_PROGRAM.runs)
+    launches = {k.name: k.launches for k in kernels.ALL}
+    outcomes = {o: v - before[o] for o, v in _outcomes(reg).items()}
+    st, _ = sched._tensorize(pods, provs, catalog, (), None)
+    # 'fallback' also counts a rounding that came out costlier than the
+    # scan (the scan ships); a fallback from an exception logs a warning
+    check(not FAULTS.records, f"the port fell back: {FAULTS.records}")
+    check(sum(outcomes.values()) == 1, "the rung was not evaluated once")
+    check(runs.get("cuda", 0) >= 1 or outcomes["skipped"] == 1,
+          "the relax program did not run on the card")
+    check(runs.get("cpu", 0) == 0, "the relax program ran on the host")
+    check(shipped.new_node_cost <= scan.new_node_cost + 1e-9,
+          "the rung shipped a costlier plan than the scan")
+    check_plan(pods, scan, provs, st)
+    check_plan(pods, shipped, provs, st)
+    t0 = time.perf_counter()
+    host_reg = Registry()
+    host = BatchScheduler(backend="tpu", device="cpu",
+                          registry=host_reg).solve(pods, provs, catalog)
+    cpu_s = time.perf_counter() - t0
+    equal = plan(host) == plan(shipped)
+    check(equal or placements_tie(host, shipped),
+          "the cuda and cpu default solves seat different pods or cost "
+          "differently")
+    check(_outcomes(host_reg) == outcomes,
+          "the cuda and cpu solves counted different relax outcomes")
+    program_equal = None
+    if runs.get("cuda"):
+        # the program's bits on both devices, on the card scan's inputs
+        _e, freed, lifted, seats = relax.eligible_partition(st, scan)
+        inputs = relax.relax_inputs(st, scan, lifted, seats, freed,
+                                    relax._host_feasibility(st))
+        iters = relax.iter_rung(relax.configured_iters())
+        bx_g, bf_g = relax._run_relax(*inputs, iters, "cuda")
+        bx_c, bf_c = relax._run_relax(*inputs, iters, "cpu")
+        program_equal = bx_g.tobytes() == bx_c.tobytes() and bf_g == bf_c
+        check(program_equal, "the relax program's bits differ on cuda "
+              "and cpu")
+    return sched, scan, dict(
+        pods=len(pods), groups=st.G, candidates=st.C, scan_ms=scan_ms,
+        shipped_ms=shipped_ms,
+        relax_ms=(_hist_sum(reg, RELAX_DURATION) - relax_s0) * 1000.0,
+        outcomes=outcomes, program_runs=runs, kernel_launches=launches,
+        scan_cost=scan.new_node_cost, shipped_cost=shipped.new_node_cost,
+        cost_ratio=shipped.new_node_cost / scan.new_node_cost,
+        scan_nodes=len(scan.nodes), shipped_nodes=len(shipped.nodes),
+        cpu_plan_equal=equal, cpu_placements_tie=placements_tie(host, shipped),
+        cpu_first_diff=_first_diff(shipped, host),
+        program_bits_equal_cpu=program_equal, cpu_solve_s=cpu_s)
+
+
+def time_relax_program(sched, scan, pods, catalog) -> dict:
+    """The relax program alone on the 50,000-pod inputs (the scan's
+    partition): device ms per call (CUDA events around one call, median
+    of three), wall ms per call, kernel launches per call."""
+    import torch
+
+    from karpenter_tpu_torch.solver import relax
+
+    st, _ = sched._tensorize(pods, [provisioner()], catalog, (), None)
+    elig, freed, lifted, seats = relax.eligible_partition(st, scan)
+    inputs = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+              for a in relax.relax_inputs(st, scan, lifted, seats, freed,
+                                          relax._host_feasibility(st))]
+    iters = relax.iter_rung(relax.configured_iters())
+
+    def call():
+        return relax._relax_program(*inputs, iters)
+
+    call()
+    dev_ms, wall_ms = [], []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        call()
+        b.record()
+        b.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1000.0)
+        dev_ms.append(a.elapsed_time(b))
+    return dict(shape=[list(x.shape) for x in inputs[:1] + inputs[2:3]],
+                iters=iters, device_ms=statistics.median(dev_ms),
+                wall_ms=statistics.median(wall_ms),
+                launches_per_call=count_launches(call))
+
+
+def phase_relax():
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+
+    catalog = generate_catalog(full=True)
+    t0 = time.perf_counter()
+    pods = relax_pods(2500)
+    sched, scan, big = relax_case(pods, catalog)
+    check(big["outcomes"]["improved"] == 1 and big["outcomes"]["fallback"] == 0,
+          "the rung did not improve the 50,000-pod unconstrained batch")
+    program = time_relax_program(sched, scan, pods, catalog)
+    _s, _scan, mixed = relax_case(relax_pods(250, spread_deps=10), catalog)
+    emit("relax", unconstrained_50k=big, mixed_5k=mixed, program=program,
+         phase_s=time.perf_counter() - t0)
+
+
+def config4_fleet(n: int):
+    """``n`` 16-cpu nodes, each holding 1–4 pods of 0.5/1/2 cpu
+    (``RandomState(7)``): an under-utilised fleet."""
+    from karpenter_tpu_torch.models.pod import PodSpec
+    from karpenter_tpu_torch.solver.types import SimNode
+
+    rng = np.random.RandomState(7)
+    nodes = []
+    for i in range(n):
+        node = SimNode(
+            instance_type="m5.xlarge", provisioner="default", zone="zone-1a",
+            capacity_type="on-demand", price=0.192,
+            allocatable={"cpu": 16.0, "memory": 64 * GIB, "pods": 50.0},
+            labels={ZONE: "zone-1a"}, name=f"n{i}")
+        for j, c in enumerate(rng.choice([0.5, 1.0, 2.0],
+                                         size=rng.randint(1, 5))):
+            node.pods.append(PodSpec(name=f"n{i}-p{j}",
+                                     requests={"cpu": float(c)}))
+        nodes.append(node)
+    return nodes
+
+
+def sweep_cluster(n_nodes: int = 300, npods: int = 28):
+    """``n_nodes`` existing m5.4xlarge nodes, each holding ``npods`` pods
+    of 6 deployments (0.25–0.75 cpu, 0.5–3.5 GiB)."""
+    from karpenter_tpu_torch.models.pod import PodSpec
+    from karpenter_tpu_torch.solver.types import SimNode
+
+    nodes = []
+    for i in range(n_nodes):
+        node = SimNode(
+            instance_type="m5.4xlarge", provisioner="default",
+            zone="zone-1a", capacity_type="on-demand", price=0.768,
+            allocatable={"cpu": 16.0, "memory": 64 * GIB, "pods": 110.0},
+            existing=True, name=f"sw{i}")
+        node.stamp_labels()
+        for j in range(npods):
+            g = j % 6
+            node.pods.append(PodSpec(
+                name=f"sw{i}-p{j}",
+                requests={"cpu": 0.25 * (1 + g % 3),
+                          "memory": (0.5 + g % 4) * GIB},
+                owner_key=f"d{g}"))
+        nodes.append(node)
+    return nodes
+
+
+def _decision(res):
+    return (not res.infeasible, len(res.nodes), round(res.new_node_cost, 9))
+
+
+def time_screen_program(nodes) -> dict:
+    """The screen program alone on the single-node screen's device inputs
+    (pmax 8): device ms per call (CUDA events around one call, median of
+    three), wall ms per call (ending with the result on the host), kernel
+    launches per call."""
+    import torch
+
+    from karpenter_tpu_torch.solver import consolidation as cons
+
+    captured = {}
+    real = cons._screen_program
+
+    def spy(*args):
+        captured["args"] = args
+        return real(*args)
+
+    cons._screen_program = spy
+    try:
+        cons.screen_delete_candidates(nodes, pmax=8, device="cuda")
+    finally:
+        cons._screen_program = real
+    args = captured["args"]
+
+    def call():
+        return real(*args)
+
+    call()
+    dev_ms, wall_ms = [], []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        out = call()
+        b.record()
+        out.cpu()
+        wall_ms.append((time.perf_counter() - t0) * 1000.0)
+        dev_ms.append(a.elapsed_time(b))
+    return dict(shape=[list(t.shape) for t in args],
+                device_ms=statistics.median(dev_ms),
+                wall_ms=statistics.median(wall_ms),
+                launches_per_call=count_launches(call))
+
+
+def phase_consolidation():
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.solver import consolidation as cons
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    t0 = time.perf_counter()
+    nodes = config4_fleet(5000)
+    torch.cuda.reset_peak_memory_stats()
+    cons.SCREEN_PROGRAM.reset()
+    kernels.reset_counts()
+    gpu = cons.screen_delete_candidates(nodes, pmax=8, measure=True,
+                                        device="cuda")
+    screen_runs = dict(cons.SCREEN_PROGRAM.runs)
+    screen_launches = {k.name: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated() / GIB
+    check(screen_runs.get("cuda", 0) >= 1 and not screen_runs.get("cpu"),
+          "the screen did not run on the card")
+    t1 = time.perf_counter()
+    host = cons.screen_delete_candidates(nodes, pmax=8, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    check(gpu.deletable.tolist() == host.deletable.tolist(),
+          "the cuda and cpu screens disagree")
+    check(gpu.deletable.mean() > 0.5,
+          "the under-utilised fleet is not mostly deletable")
+    program = time_screen_program(nodes)
+    screen = dict(nodes=len(nodes), deletable_frac=float(gpu.deletable.mean()),
+                  eval_ms=gpu.eval_ms, first_ms=gpu.compile_ms,
+                  program_runs=screen_runs, kernel_launches=screen_launches,
+                  program=program,
+                  peak_mem_gib=peak, cpu_s=cpu_s)
+
+    catalog = generate_catalog(full=False)
+    cluster = sweep_cluster()
+    cands = [[i] for i in range(16)]
+    prov = provisioner()
+    sched = BatchScheduler(backend="tpu")
+    kernels.reset_counts()
+    sweep, sweep_ms = _synced_ms(lambda: cons.sweep_what_ifs(
+        sched, cluster, cands, provisioners=[prov], instance_types=catalog,
+        max_new=1))
+    sweep_kernel_launches = {k.name: k.launches for k in kernels.ALL}
+    check(not FAULTS.records, f"the port fell back: {FAULTS.records}")
+    check(sweep.path == "batched" and sweep.n_serial == 0
+          and sweep.dispatches == 1,
+          f"the sweep was not one batched dispatch ({sweep.path}, "
+          f"{sweep.n_serial} serial, {sweep.dispatches} dispatches)")
+
+    def serial():
+        out = []
+        for k in range(len(cands)):
+            others = [n for j, n in enumerate(cluster) if j != k]
+            out.append(sched.solve(
+                [p for p in cluster[k].pods if not p.is_daemon], [prov],
+                catalog, existing_nodes=others, allow_new_nodes=True,
+                max_new_nodes=1))
+        return out
+
+    serial_res, serial_ms = _synced_ms(serial)
+    check([_decision(r) for r in sweep.results]
+          == [_decision(r) for r in serial_res],
+          "sweep decisions differ from the serial what-if loop")
+    sweep_launches = count_launches(lambda: cons.sweep_what_ifs(
+        sched, cluster, cands, provisioners=[prov], instance_types=catalog,
+        max_new=1))
+    emit("consolidation", screen=screen, sweep=dict(
+        nodes=len(cluster), candidates=len(cands), path=sweep.path,
+        dispatches=sweep.dispatches, n_batched=sweep.n_batched,
+        n_serial=sweep.n_serial, sweep_ms=sweep_ms,
+        sweep_wall_ms=sweep.wall_ms, serial_ms=serial_ms,
+        sweep_launches=sweep_launches,
+        kernel_launches=sweep_kernel_launches,
+        deletable=sum(1 for r in sweep.results if not r.infeasible
+                      and not r.nodes)),
+        phase_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     try:
         import torch
@@ -683,6 +1131,7 @@ def main() -> int:
         return 2
     from karpenter_tpu_torch import kernels
 
+    logging.getLogger("karpenter_tpu_torch").addHandler(FAULTS)
     try:
         smi = phase_device()
         phase_build()
@@ -690,6 +1139,8 @@ def main() -> int:
         st, stats, launches = phase_slice(40, 2500)
         timing = phase_timing(st, stats)
         phase_parity(8, 250)
+        phase_relax()
+        phase_consolidation()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -26,3 +26,23 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+class ProgramRuns:
+    """Run counter of one plain-PyTorch device program (the relax descent,
+    the consolidation screen), per device type: the program adds one where
+    it runs, so a caller can zero the counts, drive an entry point and see
+    which device the program ran on."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.runs: dict = {}
+
+    def add(self, device: torch.device) -> None:
+        self.runs[device.type] = self.runs.get(device.type, 0) + 1
+
+    def get(self, device_type: str) -> int:
+        return self.runs.get(device_type, 0)
+
+    def reset(self) -> None:
+        self.runs = {}

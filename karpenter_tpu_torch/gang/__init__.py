@@ -1,7 +1,7 @@
 """Gang membership helpers the ported solver path reads.
 
 A copy of the reference package's membership helpers (``gang_enabled``,
-``gang_of``, ``gang_fixed``, ``has_gangs``).  The all-or-nothing epilogue
+``gang_of``, ``gang_fixed``, ``has_gangs``, ``nodes_carry_gangs``).  The all-or-nothing epilogue
 itself is not ported yet: the port's ``BatchScheduler.solve`` refuses a
 batch that carries gang pods instead of solving it without the epilogue.
 """
@@ -9,7 +9,7 @@ batch that carries gang pods instead of solving it without the epilogue.
 from __future__ import annotations
 
 import os
-from typing import Iterable
+from typing import Iterable, Sequence
 
 from ..models.pod import PodSpec
 
@@ -32,3 +32,11 @@ def gang_fixed(pod: PodSpec) -> bool:
 
 def has_gangs(pods: Iterable[PodSpec]) -> bool:
     return any(gang_of(p) for p in pods)
+
+
+def nodes_carry_gangs(nodes: Sequence) -> bool:
+    """Whether any of ``nodes`` hosts a gang member — consolidation routes
+    such candidates through the serial what-if, never the batched sweep."""
+    if not gang_enabled():
+        return False
+    return any(gang_of(q) for n in nodes for q in n.pods)

@@ -2,7 +2,8 @@
 (name, labels), with the metric names the ported solver path records.
 
 A copy of the reference package's ``metrics.Registry`` as far as the
-solver path uses it (no text exposition, no cloud-provider decorator);
+solver path uses it (counters, gauges, histograms; no text exposition, no
+cloud-provider decorator);
 the metric names are the reference's, so a scrape of either package reads
 the same series.
 """
@@ -34,6 +35,21 @@ class Counter:
         return _lkey(labels) in self.values
 
 
+class Gauge:
+    def __init__(self) -> None:
+        self.values: Dict[tuple, float] = {}
+
+    def set(self, value: float, labels: Optional[Dict[str, str]] = None) -> None:
+        self.values[_lkey(labels)] = value
+
+    def get(self, labels: Optional[Dict[str, str]] = None) -> float:
+        return self.values.get(_lkey(labels), 0.0)
+
+    def has(self, labels: Optional[Dict[str, str]] = None) -> bool:
+        """Whether the sample exists."""
+        return _lkey(labels) in self.values
+
+
 class Histogram:
     def __init__(self, buckets=_DEFAULT_BUCKETS) -> None:
         self.buckets = buckets
@@ -59,10 +75,14 @@ class Histogram:
 class Registry:
     def __init__(self) -> None:
         self.counters: Dict[str, Counter] = {}
+        self.gauges: Dict[str, Gauge] = {}
         self.histograms: Dict[str, Histogram] = {}
 
     def counter(self, name: str) -> Counter:
         return self.counters.setdefault(name, Counter())
+
+    def gauge(self, name: str) -> Gauge:
+        return self.gauges.setdefault(name, Gauge())
 
     def histogram(self, name: str) -> Histogram:
         return self.histograms.setdefault(name, Histogram())
@@ -74,6 +94,21 @@ registry = Registry()
 SCHEDULING_DURATION = "karpenter_scheduling_duration_seconds"
 SOLVER_BACKEND_DURATION = "karpenter_solver_backend_duration_seconds"
 TENSORIZE_DURATION = "karpenter_solver_tensorize_duration_seconds"
+TENSORIZE_CACHE_HITS = "karpenter_solver_tensorize_cache_hits_total"
+TENSORIZE_CACHE_MISSES = "karpenter_solver_tensorize_cache_misses_total"
+RELAX_TOTAL = "karpenter_solver_relax_total"
+#: the relax rung's outcome labels: 'improved' (relax+round cost strictly
+#: less and shipped), 'tied' (equal cost; the scan's plan ships),
+#: 'fallback' (rounding/repair found no valid cheaper plan, or the rung
+#: raised; the scan's plan ships), 'skipped' (enabled but did not run: no
+#: eligible unconstrained groups, or a cold-served solve)
+RELAX_OUTCOMES = ("improved", "tied", "fallback", "skipped")
+RELAX_DURATION = "karpenter_solver_relax_duration_seconds"
+RELAX_IMPROVEMENT = "karpenter_solver_relax_improvement_ratio"
+CONSOLIDATION_SWEEPS = "karpenter_solver_consolidation_sweeps_total"
+CONSOLIDATION_SWEEP_SLOTS = "karpenter_solver_consolidation_sweep_slots"
+CONSOLIDATION_SWEEP_DURATION = (
+    "karpenter_solver_consolidation_sweep_duration_seconds")
 WARMSTART_SOLVES = "karpenter_solver_warmstart_solves_total"
 WARMSTART_DURATION = "karpenter_solver_warmstart_duration_seconds"
 WARMSTART_DISPLACED = "karpenter_solver_warmstart_displaced_pods"

@@ -4,22 +4,24 @@ solve or the CPU oracle.
 The port of the reference package's ``solver/scheduler.py``, reduced to the
 synchronous provisioning solve: ``BatchScheduler.solve`` runs the first
 wave, the preference-relaxation ladder, the OR-term waves, the residue
-waves and the capped-node reseat epilogue.  ``_solve_once`` routes a wave
+waves, the capped-node reseat epilogue and the convex-relaxation rung
+(solver/relax.py).  ``_solve_once`` routes a wave
 to the oracle (``auto`` batches of at most ``NATIVE_BATCH_LIMIT`` pods, or
 any batch with a hard capacity-type spread), to the hierarchical solve
 (greenfield batches at/above ``KT_HIER_THRESHOLD``), or to the flat device
 solve.  Pods the device solve can't express are carved out and solved by
 the oracle against the device result's node set.
 
-Not in this port yet: the relax rung (``solve`` treats ``relax`` as off),
-the gang epilogue (a batch with gang pods raises ``NotImplementedError``),
-the megabatch collector, compile-behind and the native C++ tier, the
-device hang guard, and the mesh.
+Not in this port yet: the gang epilogue (a batch with gang pods raises
+``NotImplementedError``), the megabatch collector, compile-behind and the
+native C++ tier, the device hang guard, and the mesh.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -28,6 +30,8 @@ from ..gang import gang_enabled, has_gangs
 from ..metrics import (
     SCHEDULING_DURATION,
     SOLVER_BACKEND_DURATION,
+    TENSORIZE_CACHE_HITS,
+    TENSORIZE_CACHE_MISSES,
     TENSORIZE_DURATION,
     Registry,
     registry as default_registry,
@@ -37,6 +41,7 @@ from ..models.instancetype import InstanceType
 from ..models.pod import PodSpec
 from ..models.provisioner import Provisioner
 from ..models.tensorize import (
+    TensorizeCache,
     batch_needs_oracle,
     device_inexpressible,
     tensorize,
@@ -45,6 +50,8 @@ from ..obs.trace import NULL_TRACE
 from .reference import solve as oracle_solve
 from .tpu import TpuSolver
 from .types import SimNode, SolveResult
+
+logger = logging.getLogger(__name__)
 
 #: "auto" routes batches of at most this many pods to the CPU oracle
 NATIVE_BATCH_LIMIT = 256
@@ -155,10 +162,23 @@ class BatchScheduler:
         self.native_batch_limit = native_batch_limit
         self.device = resolve_device(device)
         self._tpu = TpuSolver(device=self.device)
+        # incremental host tensorize: group-level tensors built once per
+        # batch shape, reused across solves (KT_TENSORIZE_CACHE=0 forces
+        # the from-scratch path, and turns the relax rung off)
+        self._tensorize_cache: Optional[TensorizeCache] = (
+            TensorizeCache()
+            if os.environ.get("KT_TENSORIZE_CACHE", "1") != "0" else None
+        )
+        for tier in ("identity", "shape"):
+            self.registry.counter(TENSORIZE_CACHE_HITS).inc(
+                {"tier": tier}, value=0.0)
+        self.registry.counter(TENSORIZE_CACHE_MISSES).inc(value=0.0)
         from .hierarchy import zero_init_hier_metrics
+        from .relax import zero_init_metrics as relax_zero_init
         from .warmstart import zero_init_metrics
 
         zero_init_metrics(self.registry)
+        relax_zero_init(self.registry)
         zero_init_hier_metrics(self.registry)
         # hierarchical re-entrancy depth: repair solves issued from inside
         # solve_hierarchical must never route hierarchically themselves
@@ -188,14 +208,11 @@ class BatchScheduler:
         term[0] retry under each alternate term.  Still-infeasible pods
         then re-solve against the accumulated state (residue waves), and
         nearly-empty capped nodes are re-seated by the oracle when that is
-        strictly cheaper.
-
-        ``relax`` is accepted for the reference's signature and ignored:
-        the convex-relaxation rung is not ported yet, so every solve
-        behaves as the reference's ``relax=False``.  A batch with gang pods
-        raises ``NotImplementedError`` (the all-or-nothing epilogue is not
-        ported yet)."""
-        del relax
+        strictly cheaper.  Large device-tier batches then pass through the
+        convex-relaxation rung, which ships min(scan, relax+round):
+        ``relax=False`` skips it, ``None`` defers to ``KT_RELAX`` (default
+        on).  A batch with gang pods raises ``NotImplementedError`` (the
+        all-or-nothing epilogue is not ported yet)."""
         if gang_enabled() and has_gangs(pods):
             raise NotImplementedError(
                 "gang scheduling is not ported to karpenter_tpu_torch yet")
@@ -266,6 +283,13 @@ class BatchScheduler:
                         max_new_nodes=max_new_nodes,
                     )
                 reseat_span.annotate(repair_waves=waves)
+            # convex-relaxation refinement rung (solver/relax.py): re-pack
+            # the large unconstrained groups globally and ship
+            # min(scan, relax+round) — never worse by construction
+            result = self._maybe_relax(
+                result, hardened, provisioners, instance_types, daemonsets,
+                unavailable, allow_new_nodes, max_new_nodes, relax, trace,
+            )
             trace.annotate(
                 n_nodes=len(result.nodes),
                 n_infeasible=len(result.infeasible),
@@ -537,6 +561,72 @@ class BatchScheduler:
                         return False
         return True
 
+    def _maybe_relax(
+        self, result: SolveResult, hardened, provisioners, instance_types,
+        daemonsets, unavailable, allow_new_nodes,
+        max_new_nodes: Optional[int], relax: Optional[bool], trace,
+    ) -> SolveResult:
+        """Route a finished device-tier solve through the convex-relaxation
+        rung (solver/relax.py) and ship min(scan, relax+round).
+
+        ``relax`` is the caller's policy: False skips unconditionally,
+        None defers to ``KT_RELAX`` (default on).  The rung refines only
+        device-scan results — oracle-routed small / ct-spread batches and
+        the oracle backend return untouched and uncounted (the outcome
+        counter partitions rung evaluations, not solves) — and only
+        unbudgeted provisioning solves: consolidation what-ifs
+        (``max_new_nodes`` / ``allow_new_nodes``) are judged on
+        feasibility at a fixed budget, not on node cost.  The program runs
+        on the scheduler's device; the port compiles nothing, so the first
+        solve of a shape runs the rung."""
+        from . import relax as relax_mod
+
+        if relax is False or not relax_mod.relax_enabled():
+            return result
+        if self.backend not in ("auto", "tpu"):
+            return result  # the rung refines the device scan only
+        if not allow_new_nodes or max_new_nodes is not None:
+            return result
+        tpu_pods = [p for p in hardened if not device_inexpressible(p)]
+        if (not tpu_pods or len(tpu_pods) <= self.native_batch_limit
+                or batch_needs_oracle(hardened)):
+            # small batches are oracle-grade already (and under auto the
+            # oracle served them — no scan to refine)
+            return result
+        if self._tensorize_cache is None:
+            return result  # without cached tensorize the probe would pay
+            # a full host build per solve — not the rung's trade
+        if result.served_cold:
+            relax_mod.record_outcome(self.registry, "skipped")
+            return result
+        try:
+            # identity-tier hit: these are the same pod objects the solve
+            # wave tensorized moments ago
+            st, _tsec = self._tensorize(
+                tpu_pods, provisioners, instance_types, daemonsets,
+                unavailable, trace=trace)
+
+            def _repair(stranded, seeds):
+                # integrality repair: the scan, seeded from the rounded
+                # fleet as existing-node state; never re-enters the rung
+                return self.solve(
+                    stranded, provisioners, instance_types,
+                    existing_nodes=seeds, daemonsets=daemonsets,
+                    unavailable=unavailable, allow_new_nodes=True,
+                    relax=False, trace=trace)
+
+            result, _outcome = relax_mod.refine(
+                result, st, registry=self.registry, trace=trace,
+                repair_solve=_repair, device=self.device)
+            return result
+        # the rung is an optimization layer — any routing failure ships
+        # the proven scan solution as a fallback
+        except Exception:
+            logger.warning("relax rung routing failed; scan solution ships",
+                           exc_info=True)
+            relax_mod.record_outcome(self.registry, "fallback")
+            return result
+
     def _solve_wave(
         self, pods, provisioners, instance_types, existing_nodes, daemonsets,
         unavailable, allow_new_nodes, max_new_nodes, first=None,
@@ -634,13 +724,26 @@ class BatchScheduler:
 
     def _tensorize(self, pods, provisioners, instance_types, daemonsets,
                    unavailable, trace=NULL_TRACE) -> Tuple["object", float]:
-        """Host tensorize.  Returns (tensors, seconds spent)."""
+        """Host tensorize through the incremental cache (steady state: a
+        lookup plus a counts vector — models/tensorize.TensorizeCache).
+        Returns (tensors, seconds spent)."""
         t0 = time.perf_counter()
-        with trace.span("tensorize"):
-            st = tensorize(pods, provisioners, instance_types,
-                           daemonsets=daemonsets, unavailable=unavailable)
+        with trace.span("tensorize") as span:
+            if self._tensorize_cache is not None:
+                st, tier = self._tensorize_cache.tensorize(
+                    pods, provisioners, instance_types,
+                    daemonsets=daemonsets, unavailable=unavailable)
+            else:
+                st = tensorize(pods, provisioners, instance_types,
+                               daemonsets=daemonsets, unavailable=unavailable)
+                tier = "off"
+            span.annotate(tier=tier)
         dt = time.perf_counter() - t0
         self.registry.histogram(TENSORIZE_DURATION).observe(dt)
+        if tier in ("identity", "shape"):
+            self.registry.counter(TENSORIZE_CACHE_HITS).inc({"tier": tier})
+        elif tier == "miss":
+            self.registry.counter(TENSORIZE_CACHE_MISSES).inc()
         return st, dt
 
     def _solve_tpu(

@@ -11,7 +11,9 @@ Both entries of ``csrc/packed_score.cu`` must be byte-equal to their plain
 versions: ``packed_scan_scores`` on random rows, at 65,536 x 1,024 (beyond
 L2), at every base-pointer offset mod 16, and past the shared-memory cap
 (the unstaged variant); ``price_step_scores`` on the CPU suite's cases
-(``chip_smoke.step_cases``) and at every offset.
+(``chip_smoke.step_cases``) and at every offset.  The plain-PyTorch device
+programs give the same bits on ``cuda`` as on ``cpu``: the relax program
+(and its exp) and the consolidation screen.
 """
 
 import numpy as np
@@ -150,3 +152,63 @@ def test_hierarchical_solve_cuda_matches_cpu(cuda, monkeypatch):
     launches = out["cuda"][7]
     assert launches["price_step_score"] == out["cuda"][5]["price_iters"] >= 1
     assert launches["packed_score"] == 0
+
+
+def _relax_inputs(n_per, spread_deps=0):
+    """The relax program's inputs for a port-built batch (the scan and the
+    partition on the host)."""
+    import chip_smoke as cs
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.models.tensorize import tensorize
+    from karpenter_tpu_torch.solver import relax
+    from karpenter_tpu_torch.solver.tpu import TpuSolver
+
+    pods = cs.relax_pods(n_per, spread_deps=spread_deps)
+    st = tensorize(pods, [cs.provisioner()], generate_catalog(full=True))
+    res = TpuSolver(device="cpu").solve(st).result
+    _elig, freed, lifted, seats = relax.eligible_partition(st, res)
+    return relax.relax_inputs(st, res, lifted, seats, freed,
+                              relax._host_feasibility(st))
+
+
+@pytest.mark.parametrize("n_per,spread_deps", [(40, 0), (250, 10)])
+def test_relax_program_cuda_equals_cpu(cuda, n_per, spread_deps):
+    """The relax program's float32 bits do not depend on the device."""
+    from karpenter_tpu_torch.solver import relax
+
+    inputs = _relax_inputs(n_per, spread_deps)
+    before = relax.RELAX_PROGRAM.get("cuda")
+    bx_g, bf_g = relax._run_relax(*inputs, 64, cuda)
+    assert relax.RELAX_PROGRAM.get("cuda") == before + 1
+    bx_c, bf_c = relax._run_relax(*inputs, 64, "cpu")
+    assert bx_g.tobytes() == bx_c.tobytes()
+    assert np.float32(bf_g) == np.float32(bf_c)
+
+
+def test_exp_cuda_equals_cpu(cuda):
+    from karpenter_tpu_torch.solver import relax
+
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        -95.0, 90.0, 1_000_000).astype(np.float32))
+    assert relax._exp(x.to(cuda)).cpu().numpy().tobytes() \
+        == relax._exp(x).numpy().tobytes()
+
+
+def test_screen_cuda_equals_cpu(cuda):
+    import chip_smoke as cs
+    from karpenter_tpu_torch.solver import consolidation as cons
+
+    nodes = cs.config4_fleet(1000)
+    rng = np.random.default_rng(4)
+    compat = rng.random((1000, 1000)) < 0.02
+    subsets = [sorted(rng.choice(1000, size=int(rng.integers(1, 4)),
+                                 replace=False).tolist()) for _ in range(300)]
+    for args in ((nodes, [[i] for i in range(1000)], ~np.eye(1000, dtype=bool),
+                  8), (nodes, subsets, compat, 16)):
+        before = cons.SCREEN_PROGRAM.get("cuda")
+        g = cons.screen_subset_deletes(*args[:3], pmax_total=args[3],
+                                       device=cuda)
+        assert cons.SCREEN_PROGRAM.get("cuda") == before + 1
+        c = cons.screen_subset_deletes(*args[:3], pmax_total=args[3],
+                                       device="cpu")
+        assert g.deletable.tolist() == c.deletable.tolist()

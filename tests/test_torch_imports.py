@@ -68,7 +68,9 @@ def probe():
 def test_every_module_is_probed():
     assert "karpenter_tpu_torch.solver.hierarchy" in MODULES
     assert "karpenter_tpu_torch.kernels" in MODULES
-    assert len(MODULES) >= 25
+    assert "karpenter_tpu_torch.solver.relax" in MODULES
+    assert "karpenter_tpu_torch.solver.consolidation" in MODULES
+    assert len(MODULES) >= 26
 
 
 @pytest.mark.parametrize("module", MODULES + ["chip_smoke"])
