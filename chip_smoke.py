@@ -42,12 +42,29 @@ no result):
 8. consolidation — the deletability screen of a 5,000-node fleet on
    ``cuda`` and on ``cpu`` (equal vectors), and a 16-candidate what-if
    sweep over a 300-node cluster, batched in one dispatch, against the
-   serial loop of what-if solves (equal decisions).
+   serial loop of what-if solves (equal decisions);
+9. controllers — (a) the slice's 100,000-pod batch provisioned through
+   ``ProvisioningController`` (pods added to a ``ClusterState`` under the
+   slice's provisioner, the batching window passed, machines created on
+   the fake cloud, pods bound): hierarchical routing, one
+   ``price_step_scores`` launch per price iteration, the slice's plan
+   (equal or ``placements_tie``), every pod bound to a node that exists,
+   the limit held; (b) on the config-4 repack fleet: the consolidation
+   evaluation's screen step at 5,000 nodes (compat rows, one screen of
+   every single and structured subset on the card), one full
+   deprovisioning reconcile at 300 nodes (the screen on the card, a
+   proposed action executed, the fleet settled, a warm reconcile), and
+   the ladder driven to convergence at 200 nodes (no pod pending, every
+   pod bound once, no node over its allocatable, a lower cost); (c) a
+   100-node fleet driven to convergence on ``cuda`` and on ``cpu``: equal
+   actions, final cluster and bindings.  The sizes are cut from the
+   reference bench's 5,000 and 2,000 nodes to fit the time
+   (:data:`REPACK_SIZES`).
 
 Launch counts (the hand-written kernels', and the relax and screen
 programs' runs) are zeroed just before each path is driven and read just
-after; no hand-written kernel is on the relax or consolidation path, so
-their kernel counts read 0 there.  The last two lines are the kernel table (``{"kernels": [...]}``) and
+after; no hand-written kernel is on the relax, consolidation or repack
+path, so their kernel counts read 0 there.  The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -497,7 +514,7 @@ def phase_slice(nd: int, per: int):
          free_cost=free.new_node_cost, launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / GIB,
          phase_s=time.perf_counter() - t0)
-    return st, stats, launches
+    return st, stats, launches, limit, res
 
 
 def _bound(bytes_moved: int, ops: int) -> dict:
@@ -1113,6 +1130,205 @@ def phase_consolidation():
         phase_s=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the controllers
+# ---------------------------------------------------------------------------
+
+
+#: fleet sizes of the repack runs.  The reference bench's config 4 runs
+#: one reconcile at 5,000 nodes and the ladder to convergence at 2,000; on
+#: the card the port's what-if solves are launch-bound (about 10 s for a
+#: what-if over 240 of 300 nodes), so a full evaluation at 5,000 nodes
+#: does not fit this script's time: the screen step runs at 5,000, the
+#: rest at these sizes (PERF.md §4)
+REPACK_SIZES = {"screen": 5000, "reconcile": 300, "converge": 200,
+                "parity": 100}
+
+
+def provision_through_controller(catalog, limit, pods):
+    """The slice's batch through ``ProvisioningController``: pods added to
+    a ``ClusterState`` under the slice's provisioner, reconcile, the
+    batching window passed, reconcile again.  Returns the state, the
+    cloud, the scheduler, the result, the controller wall ms and the
+    launch counts of that run."""
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.cloud.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.provisioning import (
+        ProvisioningController,
+    )
+    from karpenter_tpu_torch.controllers.state import ClusterState
+    from karpenter_tpu_torch.metrics import Registry
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    clock = FakeClock()
+    state = ClusterState(clock=clock)
+    state.apply_provisioner(provisioner(limit))
+    cloud = FakeCloudProvider(catalog, clock=clock)
+    reg = Registry()
+    sched = BatchScheduler(backend="auto", registry=reg)
+    ctrl = ProvisioningController(state, cloud, scheduler=sched,
+                                  registry=reg, clock=clock)
+    for p in pods:
+        state.add_pod(p)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    first = ctrl.reconcile()
+    clock.advance(1.5)
+    res = ctrl.reconcile()
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    launches = {k.name: k.launches for k in kernels.ALL}
+    check(first is None, "the controller solved before its window closed")
+    check(res is not None, "the controller did not solve the batch")
+    return state, cloud, sched, res, wall_ms, launches
+
+
+def phase_controllers(slice_limit, slice_res, pods):
+    """(a) the slice's batch ``pods`` provisioned through the controller
+    under the slice's limit, against the slice's plan; on the repack
+    fleet at the sizes of :data:`REPACK_SIZES`, (b) the consolidation
+    evaluation's screen step, one full reconcile and the ladder to
+    convergence, and (c) a fleet driven to convergence on ``cuda`` and on
+    ``cpu``, equal decisions."""
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.metrics import (
+        HIER_SOLVES,
+        PROVISIONER_USAGE,
+        SCHEDULING_DURATION,
+    )
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.repack import (
+        cluster_faults,
+        cluster_plan,
+        one_reconcile_at,
+        repack_to_convergence,
+        reset_name_counters,
+        screen_at,
+    )
+    from karpenter_tpu_torch.solver import consolidation as cons
+
+    catalog = generate_catalog(full=True)
+    t_phase = time.perf_counter()
+
+    # (a) provisioning through the controller
+    state, cloud, sched, res, wall_ms, launches = \
+        provision_through_controller(catalog, slice_limit, pods)
+    reg = sched.registry
+    stats = dict(sched.hier_stats)
+    check(reg.counter(HIER_SOLVES).get({"path": "hierarchical"}) == 1,
+          "the controller's solve did not route hierarchically")
+    check(launches["price_step_score"] >= 1
+          and launches["price_step_score"] == stats["price_iters"],
+          "price_step_score launches != price iterations in the "
+          "controller's solve")
+    check(launches["packed_score"] == 0,
+          "the controller's solve launched the price-row entry")
+    equal = plan(res) == plan(slice_res)
+    tie = placements_tie(res, slice_res)
+    check(equal or tie, "the controller's plan differs from the slice's")
+    # every pod of the plan bound to a node that exists (the slice's plan
+    # leaves none infeasible; a smaller batch may)
+    faults = cluster_faults(state, cloud, unbound_ok=res.infeasible)
+    check(not faults, f"the provisioned cluster is unsound: {faults[:5]}")
+    raw_cap = {it.name: it.capacity for it in catalog}
+    shipped = sum(raw_cap[ns.node.instance_type]["cpu"]
+                  for ns in state.nodes.values())
+    check(shipped <= slice_limit * (1.0 + 1e-6),
+          f"shipped cpu {shipped} exceeds the limit {slice_limit}")
+    usage = reg.gauge(PROVISIONER_USAGE).get(
+        {"provisioner": "default", "resource_type": "cpu"})
+    check(abs(usage - shipped) <= 1e-6 * shipped,
+          f"the usage gauge ({usage}) disagrees with the launched nodes")
+    provision = dict(
+        pods=len(pods), nodes=len(state.nodes), cost=res.new_node_cost,
+        infeasible=len(res.infeasible), bound=len(state.bindings),
+        cpu_limit=slice_limit, cpu_shipped=shipped, plan_equal=equal,
+        placements_tie=tie, controller_wall_ms=wall_ms,
+        solve_wall_ms=_hist_sum(reg, SCHEDULING_DURATION) * 1000.0,
+        hier_total_ms=stats.get("total_ms"),
+        price_iters=stats.get("price_iters"), launches=launches)
+    del state, cloud, sched, res
+    emit("controllers_provision", **provision)
+
+    # (b) the evaluation's screen step at config-4 width, one full
+    # reconcile, then the ladder to convergence
+    reset_name_counters()
+    kernels.reset_counts()
+    screen = screen_at(catalog, REPACK_SIZES["screen"], None)
+    screen["kernel_launches"] = {k.name: k.launches for k in kernels.ALL}
+    check(screen["screen_program_runs"] == {"cuda": 1},
+          "the controller's screen step did not run once on the card")
+    check(screen["singles_deletable"] > screen["candidates"] // 2,
+          "the under-utilised fleet is not mostly deletable")
+    check(not any(screen["kernel_launches"].values()),
+          "a hand-written kernel launched on the screen step")
+    emit("controllers_screen", **screen)
+
+    reset_name_counters()
+    _state, reconcile = one_reconcile_at(catalog, REPACK_SIZES["reconcile"],
+                                         None)
+    check(reconcile["screen_program_runs"].get("cuda", 0) >= 1
+          and not reconcile["screen_program_runs"].get("cpu"),
+          "the reconcile's screen did not run on the card")
+    check(reconcile["proposed"] is not None,
+          "the full reconcile proposed no action")
+    check(not any(reconcile["kernel_launches"].values()),
+          "a hand-written kernel launched on the consolidation path")
+    check(not reconcile["settled_faults"],
+          f"the settled cluster is unsound: {reconcile['settled_faults']}")
+    del _state
+    emit("controllers_reconcile", **reconcile)
+
+    reset_name_counters()
+    cons.SCREEN_PROGRAM.reset()
+    kernels.reset_counts()
+    state, repack, _keys = repack_to_convergence(
+        catalog, REPACK_SIZES["converge"], "auto", None)
+    repack["kernel_launches"] = {k.name: k.launches for k in kernels.ALL}
+    check(not any(repack["kernel_launches"].values()),
+          "a hand-written kernel launched on the repack path")
+    check(repack["pending_end"] == 0, "pods left pending after the repack")
+    faults = cluster_faults(state)
+    check(not faults, f"the repacked cluster is unsound: {faults[:5]}")
+    check(repack["final_cost"] < repack["initial_cost"],
+          "the repack did not lower the fleet's cost")
+    repack["screen_program_runs"] = dict(cons.SCREEN_PROGRAM.runs)
+    check(repack["screen_program_runs"].get("cuda", 0) >= 1
+          and not repack["screen_program_runs"].get("cpu"),
+          "the repack's screens did not run on the card")
+    del state
+    emit("controllers_repack", **repack)
+
+    # (c) the same decisions on cuda and on cpu
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        reset_name_counters()
+        cons.SCREEN_PROGRAM.reset()
+        t0 = time.perf_counter()
+        st, info, keys = repack_to_convergence(
+            catalog, REPACK_SIZES["parity"], "auto", dev)
+        runs[dev] = (keys, cluster_plan(st), dict(st.bindings), info,
+                     time.perf_counter() - t0)
+        faults = cluster_faults(st)
+        check(not faults, f"the {dev} parity cluster is unsound: "
+              f"{faults[:5]}")
+        check(set(cons.SCREEN_PROGRAM.runs) == {dev},
+              f"the {dev} parity run screened on {cons.SCREEN_PROGRAM.runs}")
+    (kg, pg, bg, ig, tg), (kc, pc, bc, ic, tc) = runs["cuda"], runs["cpu"]
+    check(kg == kc, f"cuda and cpu decided differently: {kg} vs {kc}")
+    check(pg == pc and bg == bc,
+          "cuda and cpu converged to different clusters")
+    check(ig["final_cost"] < ig["initial_cost"] and ig["pending_end"] == 0,
+          "the parity fleet did not converge")
+    check(not FAULTS.records, f"the port fell back: {FAULTS.records}")
+    emit("controllers_parity", nodes=REPACK_SIZES["parity"], actions=len(kg),
+         action_nodes=ig["action_nodes"], decisions_equal=True,
+         final_plan_equal=True, nodes_end=ig["nodes_end"],
+         final_cost=ig["final_cost"], cuda_s=tg, cpu_s=tc,
+         cuda_phase_s=ig["phase_s"], cpu_phase_s=ic["phase_s"])
+    emit("controllers", phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     try:
         import torch
@@ -1136,11 +1352,12 @@ def main() -> int:
         smi = phase_device()
         phase_build()
         max_err = phase_kernel()
-        st, stats, launches = phase_slice(40, 2500)
+        st, stats, launches, limit, slice_res = phase_slice(40, 2500)
         timing = phase_timing(st, stats)
         phase_parity(8, 250)
         phase_relax()
         phase_consolidation()
+        phase_controllers(limit, slice_res, deployments(40, 2500))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,0 +1,946 @@
+"""Deprovisioning controller — expiration, drift, emptiness, consolidation.
+
+The second TPU-offload target (SURVEY.md §3.3): the consolidation what-if
+("can these nodes' pods fit on the remaining nodes plus at most one cheaper
+new node?") reuses the batch scheduler, so every simulated re-scheduling pass
+runs on the TPU solver.
+
+Mechanism order and semantics follow designs/deprovisioning.md:31 (expiration
+-> drift -> emptiness -> consolidation), concepts/deprovisioning.md:64-95
+(empty-node deletes, multi-node, then single-node; spot nodes are delete-only
+:83-85) and designs/consolidation.md:25-67 (disruption-cost candidate
+ordering; replacement launched before delete; 5-min minimum node lifetime;
+stabilization while pods are pending; back-off when cluster state is
+unchanged).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+logger = logging.getLogger(__name__)
+
+from ..cloud.base import CloudProvider
+from ..events import Event, Recorder
+from ..metrics import (
+    DEPROVISIONING_ACTIONS,
+    DEPROVISIONING_DURATION,
+    Registry,
+    registry as default_registry,
+)
+from ..models import labels as L
+from ..models.pod import PodSpec
+from ..obs import tracer_for
+from ..obs.trace import NULL_TRACE
+from ..solver.scheduler import BatchScheduler
+from ..solver.types import SimNode, SolveResult
+from ..utils.clock import Clock
+from .state import ClusterState, NodeState
+from .termination import TerminationController
+
+MIN_NODE_LIFETIME = 5 * 60.0          # designs/consolidation.md:67
+DEFAULT_BATCH_IDLE_AFTER_NO_ACTION = 15.0
+#: per-action validation wait: a proposed action is held this long, then
+#: re-validated against fresh cluster state before executing
+#: (designs/deprovisioning.md "DeprovisioningTTL of 15 seconds")
+DEPROVISIONING_TTL = 15.0
+#: how long a consolidation replacement may take to become ready before the
+#: action is abandoned and the replacement reaped (designs/deprovisioning.md:32-33)
+REPLACEMENT_READY_TIMEOUT = 9.5 * 60.0
+#: per-node cool-off after a replace attempt fails (create error or readiness
+#: timeout); time-based mechanisms (expiration/drift) consult this so a
+#: doomed replace retries on this cadence instead of every tick
+REPLACE_RETRY_BACKOFF = 2 * 60.0
+#: above this candidate count, run the one-device-call delete screen
+#: (solver/consolidation.py) before any sequential what-ifs
+SCREEN_THRESHOLD = 32
+#: the subset screen's per-subset pod budget (solver/consolidation.py
+#: screen_subset_deletes pmax_total default): subsets with bigger pod unions
+#: are conservatively unscreenable — _escalate_capped_delete takes over there
+SCREEN_PMAX = 128
+#: single-candidate what-ifs per consolidation pass; the rotating cursor
+#: resumes next pass (the reference's single-node consolidation timeout)
+SINGLE_TRIES_PER_PASS = 100
+#: minimum consolidation candidates before the batched multi-subset screen
+#: runs (below this, the sequential prefix search is cheap and exact)
+SUBSET_SCREEN_MIN = 4
+#: cap on structured subsets screened per pass
+MAX_SUBSETS = 64
+
+
+@dataclass
+class Action:
+    kind: str                         # "delete" | "replace"
+    mechanism: str                    # "emptiness" | "expiration" | "drift" | "consolidation"
+    nodes: List[str]
+    replacement: Optional[SimNode] = None
+    savings: float = 0.0
+
+
+@dataclass
+class PendingReplacement:
+    """A committed replace action waiting for its replacement node to become
+    ready before the old nodes are terminated (designs/consolidation.md:15,
+    designs/deprovisioning.md:32-33).  While one is in flight no other
+    deprovisioning action starts."""
+
+    replacement: str                  # replacement node name
+    old_nodes: List[str]
+    deadline: float                   # abandon the action past this
+    savings: float = 0.0
+    mechanism: str = "consolidation"  # which replace mechanism committed it
+
+
+class DeprovisioningController:
+    def __init__(
+        self,
+        state: ClusterState,
+        cloud: CloudProvider,
+        termination: TerminationController,
+        provisioning=None,                      # ProvisioningController, for replacements
+        scheduler: Optional[BatchScheduler] = None,
+        recorder: Optional[Recorder] = None,
+        registry: Optional[Registry] = None,
+        clock: Optional[Clock] = None,
+        drift_enabled: bool = False,            # feature gate (settings.md:76-78)
+        deprovisioning_ttl: float = DEPROVISIONING_TTL,
+        tracer=None,
+    ) -> None:
+        self.state = state
+        self.cloud = cloud
+        self.termination = termination
+        self.provisioning = provisioning
+        self.scheduler = scheduler or BatchScheduler(backend="oracle")
+        self.recorder = recorder or Recorder()
+        self.registry = registry or default_registry
+        self.clock = clock or state.clock
+        self.tracer = (tracer if tracer is not None
+                       else tracer_for(self.registry, clock=self.clock))
+        # the trace of the in-progress consolidation evaluation, so the
+        # what-if solves deep in the mechanism attribute to it (the tick is
+        # single-threaded; no lock needed)
+        self._eval_trace = None
+        self.drift_enabled = drift_enabled
+        self.deprovisioning_ttl = deprovisioning_ttl
+        self.unavailable = getattr(provisioning, "unavailable", None)
+        self._last_seqnum = -1
+        self._last_action_at = 0.0
+        # per-phase wall-time accumulators (repack bench tick breakdown)
+        self.phase_s: Dict[str, float] = {}
+        self.phase_n: Dict[str, int] = {}
+        self._single_cursor = 0  # rotating single-consolidation resume point
+        self._last_eval_at = -1e18
+        # sweep metrics must exist from construction (KT003)
+        from ..solver.consolidation import zero_init_sweep_metrics
+
+        zero_init_sweep_metrics(self.registry)
+        self._pending: Optional[PendingReplacement] = None
+        self._proposed: Optional[Tuple[Action, float]] = None  # (action, validate_at)
+        self._replace_backoff: Dict[str, float] = {}  # node -> retry-after
+        self._last_subset_drop = 0
+        self._last_confirm_drop = 0
+
+    # ---- tick ------------------------------------------------------------
+    def reconcile(self) -> Optional[Action]:
+        t0 = time.perf_counter()
+        try:
+            # A committed replace action waiting on readiness blocks all
+            # other deprovisioning until it completes or times out.
+            if self._pending is not None:
+                self._finish_pending()
+                return None
+            self._purge_backoff()
+            # A proposed action sits for the deprovisioning TTL, then is
+            # re-validated against fresh state before executing
+            # (designs/deprovisioning.md "DeprovisioningTTL of 15 seconds").
+            if self._proposed is not None:
+                proposed, validate_at = self._proposed
+                if self.clock.now() < validate_at:
+                    return None
+                self._proposed = None
+                fresh = self._revalidate(proposed)
+                if fresh is None:
+                    return None  # conditions changed; start over next tick
+                if not self._execute(fresh):
+                    return None  # aborted (infeasible plan / failed create)
+                self._last_action_at = self.clock.now()
+                return fresh
+            # Time-based mechanisms (expiration/drift/emptiness) run every
+            # tick — they fire on clock advance, which never bumps seqnum.
+            action = (
+                self._expiration()
+                or (self._drift() if self.drift_enabled else None)
+                or self._emptiness()
+            )
+            if action is None and self._should_evaluate_consolidation():
+                # one trace per consolidation evaluation: the repack search
+                # is the expensive deprovisioning phase, and its what-if
+                # solves attribute to this trace via _eval_trace
+                with self.tracer.start("deprovision",
+                                       mechanism="consolidation") as trace:
+                    self._eval_trace = trace
+                    try:
+                        action = self._consolidation()
+                    finally:
+                        self._eval_trace = None
+                    trace.annotate(
+                        action=action.kind if action is not None else "none",
+                        n_nodes=len(self.state.nodes),
+                    )
+                if action is None:
+                    self._last_seqnum = self.state.seqnum
+                    self._last_eval_at = self.clock.now()
+            if action is None:
+                return None
+            if self.deprovisioning_ttl > 0:
+                self._proposed = (action, self.clock.now() + self.deprovisioning_ttl)
+                return None
+            if not self._execute(action):
+                return None  # aborted (infeasible plan / failed create)
+            self._last_action_at = self.clock.now()
+            return action
+        finally:
+            self.registry.histogram(DEPROVISIONING_DURATION).observe(
+                time.perf_counter() - t0
+            )
+
+    def _revalidate(self, proposed: Action) -> Optional[Action]:
+        """Re-run the proposing mechanism and accept only if it still yields
+        the same action (kind + node set); the fresh action is executed so a
+        replacement spec reflects current prices/availability."""
+        if proposed.mechanism == "expiration":
+            fresh = self._expiration()
+        elif proposed.mechanism == "drift":
+            fresh = self._drift() if self.drift_enabled else None
+        elif proposed.mechanism == "emptiness":
+            fresh = self._emptiness()
+        else:
+            fresh = self._consolidation()
+        if fresh is None or fresh.mechanism != proposed.mechanism or fresh.kind != proposed.kind:
+            return None
+        if set(fresh.nodes) == set(proposed.nodes):
+            return fresh
+        # Deletes stay valid when the eligible set GREW during the wait
+        # (e.g. more nodes crossed their empty-TTL): execute the proposed
+        # subset rather than dropping and restarting the TTL clock forever
+        # under steady churn.  Replacements were computed for an exact node
+        # set, so any change drops them.
+        if proposed.kind == "delete" and set(proposed.nodes) <= set(fresh.nodes):
+            return proposed
+        return None
+
+    def _should_evaluate_consolidation(self) -> bool:
+        """Back off while the cluster is unchanged (consolidation.md:64) but
+        re-arm on a timer so time-driven eligibility (minimum node lifetime,
+        TTL'd ICE entries) is eventually re-examined."""
+        if self.state.seqnum != self._last_seqnum:
+            return True
+        return self.clock.now() - self._last_eval_at >= DEFAULT_BATCH_IDLE_AFTER_NO_ACTION
+
+    # ---- mechanisms -------------------------------------------------------
+    def _purge_backoff(self) -> None:
+        """Drop expired cool-off entries (once per tick) so the dict stays
+        bounded by concurrently cooling-off nodes, not by every node that
+        ever failed a replace."""
+        now = self.clock.now()
+        for name, until in list(self._replace_backoff.items()):
+            if now >= until:
+                del self._replace_backoff[name]
+
+    def _backing_off(self, node_name: str) -> bool:
+        return self.clock.now() < self._replace_backoff.get(node_name, 0.0)
+
+    def _expiration(self) -> Optional[Action]:
+        now = self.clock.now()
+        for ns in self.state.provisioned_nodes():
+            if ns.marked_for_deletion or ns.node.expires_at is None:
+                continue
+            if self._backing_off(ns.node.name):
+                continue
+            if now >= ns.node.expires_at:
+                return Action("replace", "expiration", [ns.node.name])
+        return None
+
+    def _drift(self) -> Optional[Action]:
+        for ns in self.state.provisioned_nodes():
+            if ns.marked_for_deletion or ns.machine is None:
+                continue
+            if self._backing_off(ns.node.name):
+                continue
+            if self.cloud.is_machine_drifted(ns.machine):
+                return Action("replace", "drift", [ns.node.name])
+        return None
+
+    def _emptiness(self) -> Optional[Action]:
+        """ttlSecondsAfterEmpty deletes (mutually exclusive with consolidation
+        per provisioner — designs/consolidation.md 'Emptiness TTL')."""
+        now = self.clock.now()
+        names = []
+        for ns in self.state.empty_nodes():
+            prov = self.state.provisioners.get(ns.node.labels.get(L.PROVISIONER_NAME, ""))
+            if prov is None or prov.consolidation_enabled:
+                continue
+            if prov.ttl_seconds_after_empty is None:
+                continue
+            if ns.empty_since is not None and now - ns.empty_since >= prov.ttl_seconds_after_empty:
+                names.append(ns.node.name)
+        return Action("delete", "emptiness", names) if names else None
+
+    # ---- consolidation ----------------------------------------------------
+    def _candidates(self) -> List[Tuple[float, NodeState]]:
+        """Consolidatable nodes ordered by ascending disruption cost
+        (consolidation.md:25-36)."""
+        now = self.clock.now()
+        out = []
+        for ns in self.state.provisioned_nodes():
+            if ns.marked_for_deletion or ns.cordoned or not ns.initialized:
+                continue
+            if ns.nominated_until > now:
+                continue  # in-flight pods expected to land here; don't disrupt
+            prov = self.state.provisioners.get(ns.node.labels.get(L.PROVISIONER_NAME, ""))
+            if prov is None or not prov.consolidation_enabled:
+                continue
+            if now - ns.node.created_at < MIN_NODE_LIFETIME:
+                continue
+            if any(p.do_not_evict for p in ns.node.pods):
+                continue
+            if self.termination.blocked(ns.node.name):
+                continue
+            out.append((self._disruption_cost(ns), ns))
+        out.sort(key=lambda t: (t[0], t[1].node.name))
+        return out
+
+    def _disruption_cost(self, ns: NodeState) -> float:
+        """pods x priority x deletion-cost, weighted by lifetime remaining."""
+        cost = 0.0
+        for p in ns.node.pods:
+            cost += p.deletion_cost * (1.0 + max(0, p.priority) / 1000.0)
+        if ns.node.expires_at is not None:
+            total = max(ns.node.expires_at - ns.node.created_at, 1e-9)
+            remaining = max(ns.node.expires_at - self.clock.now(), 0.0)
+            cost *= remaining / total
+        return cost
+
+    def _pod_could_use(self, pod: PodSpec, node) -> bool:
+        """Could this pending pod land on this node?  (taints, resources,
+        requirement compatibility — the cheap host-side screen)."""
+        if any(t.blocks(pod.tolerations) for t in node.taints):
+            return False
+        if not node.fits(pod.requests):
+            return False
+        terms = pod.scheduling_requirements()
+        return any(reqs.compatible(node.labels) is None for reqs in terms)
+
+    def _phase(self, name: str, seconds: float) -> None:
+        """Accumulate per-phase wall time for the repack bench's tick
+        breakdown (screen / exact-confirm / prefix-search / ...); cheap dict
+        adds, reset by the harness."""
+        self.phase_s[name] = self.phase_s.get(name, 0.0) + seconds
+        self.phase_n[name] = self.phase_n.get(name, 0) + 1
+
+    def _consolidation(self) -> Optional[Action]:
+        pending = self.state.pending_pods()
+        if pending:
+            # Stabilization: wait for the cluster to settle before any
+            # simulation-based action.  But empty nodes that NO pending pod
+            # could land on are still reclaimable — otherwise an adversary
+            # that keeps a pod perpetually unschedulable (chaos suite,
+            # test/suites/chaos/suite_test.go:66-112) freezes consolidation
+            # while provisioning keeps adding nodes: unbounded growth.
+            empties = [
+                ns for _, ns in self._candidates()
+                if ns.workload_empty()
+                and not any(self._pod_could_use(p, ns.node) for p in pending)
+            ]
+            if empties:
+                return Action("delete", "consolidation",
+                              sorted(ns.node.name for ns in empties))
+            return None
+        cands = self._candidates()
+        if not cands:
+            return None
+
+        # 1) empty-node deletes (deprovisioning.md:70-75); daemon-only nodes
+        #    count as empty (NodeState.workload_empty)
+        empties = [ns.node.name for _, ns in cands if ns.workload_empty()]
+        if empties:
+            return Action("delete", "consolidation", empties)
+
+        # 1b/2a) device screen: candidate singletons (large clusters) AND
+        #     structured multi-subsets (prefixes, per-type, per-zone groups)
+        #     evaluated in ONE device call, then exact-confirmed — MULTI
+        #     subsets first (top hits by savings), then singles in
+        #     disruption order: the reference consolidates multi-node before
+        #     single-node (concepts/deprovisioning.md:64-95), and a fleet
+        #     repack that deletes one node per 15 s TTL cycle would take
+        #     hours where one confirmed prefix delete takes a cycle.
+        #     Beyond the reference's prefix-only heuristic — the win SURVEY
+        #     §7.6 reserves for the device ("vectorized over many candidate
+        #     sets at once").
+        run_single = len(cands) >= SCREEN_THRESHOLD
+        run_multi = len(cands) >= SUBSET_SCREEN_MIN
+        if run_single or run_multi:
+            from ..solver.consolidation import compat_matrix, screen_subset_deletes
+
+            all_nodes = self.state.schedulable_nodes()
+            idx_of = {n.name: i for i, n in enumerate(all_nodes)}
+            cand_idx = [idx_of[ns.node.name] for _, ns in cands
+                        if ns.node.name in idx_of]
+            # compat rows are computed only for candidate sources
+            # (O(|cands| x N) host work, not O(N^2))
+            t0 = time.perf_counter()
+            compat = compat_matrix(all_nodes, sources=cand_idx)
+            self._phase("compat_matrix", time.perf_counter() - t0)
+            singles = [[i] for i in cand_idx] if run_single else []
+            multis = self._multi_subsets(cand_idx, cands, idx_of) if run_multi else []
+            t0 = time.perf_counter()
+            # the screen program runs where the scheduler's solves run
+            screen = screen_subset_deletes(all_nodes, singles + multis, compat,
+                                           pmax_total=SCREEN_PMAX,
+                                           device=self.scheduler.device)
+            self._phase("device_screen", time.perf_counter() - t0)
+
+            if multis:
+                t0 = time.perf_counter()
+                attempt = self._confirm_subsets(
+                    cands, all_nodes, idx_of, multis,
+                    screen.deletable[len(singles):],
+                )
+                self._phase("confirm_subsets", time.perf_counter() - t0)
+                if attempt is not None:
+                    attempt = self._escalate_capped_delete(cands, attempt)
+                    return attempt
+
+            if run_single:
+                from ..solver.consolidation import SWEEP_MAX_SLOTS
+
+                deletable_idx = {i for k, i in enumerate(cand_idx)
+                                 if screen.deletable[k]}
+                screened = [ns for _, ns in cands
+                            if idx_of.get(ns.node.name) in deletable_idx]
+                # ONE vmapped dispatch per chunk confirms every screened
+                # single together (was: one full what-if round trip each);
+                # first confirmed delete in disruption order wins, exactly
+                # like the serial loop it replaces
+                for lo in range(0, len(screened), SWEEP_MAX_SLOTS):
+                    chunk = screened[lo:lo + SWEEP_MAX_SLOTS]
+                    t0 = time.perf_counter()
+                    attempts = self._simulate_batch(
+                        [[ns] for ns in chunk],
+                        stop_on=lambda a: a is not None
+                        and a.kind == "delete",
+                    )
+                    self._phase("screened_confirm", time.perf_counter() - t0)
+                    for attempt in attempts:
+                        if attempt is not None and attempt.kind == "delete":
+                            return attempt
+                # fall through: no screened single confirmed; try replace paths
+
+        # 2b) multi-node: binary search the largest disruption-cost prefix
+        #     that can be deleted together with <=1 replacement
+        t0 = time.perf_counter()
+        best_multi = self._prefix_search(cands, 2, len(cands))
+        self._phase("prefix_search", time.perf_counter() - t0)
+        if best_multi is not None:
+            return best_multi
+
+        # 3) single-node: first candidate (lowest disruption) that works.
+        #    Budgeted per pass with a rotating cursor — the reference bounds
+        #    single-node consolidation the same way (a per-pass timeout that
+        #    resumes where it left off) because each try is a full what-if;
+        #    an unbounded sweep over a big fleet's candidates costs minutes
+        #    per reconcile while finding nothing on converged fleets
+        t0 = time.perf_counter()
+        try:
+            from ..solver.consolidation import SWEEP_MAX_SLOTS
+
+            n = len(cands)
+            start = self._single_cursor % n
+            budget = min(SINGLE_TRIES_PER_PASS, n)
+            window = [cands[(start + k) % n][1] for k in range(budget)]
+            # the rotating window rides the sweep: each chunk is one
+            # vmapped dispatch instead of up to SWEEP_MAX_SLOTS sequential
+            # what-ifs; the first candidate (in rotation order) whose
+            # what-if confirms wins, exactly like the serial loop
+            tried = 0
+            for lo in range(0, budget, SWEEP_MAX_SLOTS):
+                chunk = window[lo:lo + SWEEP_MAX_SLOTS]
+                attempts = self._simulate_batch(
+                    [[ns] for ns in chunk],
+                    stop_on=lambda a: a is not None,
+                )
+                for j, attempt in enumerate(attempts):
+                    if attempt is not None:
+                        self._single_cursor = start + lo + j + 1
+                        return attempt
+                tried += len(chunk)
+            self._single_cursor = start + tried
+            return None
+        finally:
+            self._phase("single_fallback", time.perf_counter() - t0)
+
+    def _prefix_search(self, cands, lo: int, hi: int) -> Optional[Action]:
+        """Binary-search the largest disruption-cost prefix of ``cands`` that
+        exact-confirms (delete, or delete + one replacement)."""
+        best = None
+        # ktlint: allow[KT010] binary search is sequentially dependent —
+        # each probe's prefix size is chosen from the previous outcome, so
+        # the what-ifs cannot be batched into one dispatch
+        while lo <= hi:
+            mid = (lo + hi) // 2
+            attempt = self._simulate([ns for _, ns in cands[:mid]])
+            if attempt is not None:
+                best = attempt
+                lo = mid + 1
+            else:
+                hi = mid - 1
+        return best
+
+    def _escalate_capped_delete(self, cands, attempt: Action) -> Action:
+        """The device screen conservatively rejects subsets whose pod union
+        exceeds its pod budget (SCREEN_PMAX), so on a large under-utilized
+        fleet the biggest SCREENED delete is pod-capped (~SCREEN_PMAX pods)
+        while the true consolidatable prefix is 10-20x larger — the r4
+        repack needed 48 pod-capped actions x one 15 s TTL cycle each where
+        the uncapped oracle loop needed one.  When a confirmed delete looks
+        cap-bound and candidates remain, binary-search beyond it with exact
+        what-ifs and take the bigger delete."""
+        if attempt.kind != "delete" or len(attempt.nodes) >= len(cands):
+            return attempt
+        names = set(attempt.nodes)
+        n_pods = sum(len(ns.node.pods) for _, ns in cands
+                     if ns.node.name in names)
+        if n_pods < int(0.7 * SCREEN_PMAX):
+            return attempt  # genuinely small: the screen wasn't the binder
+        t0 = time.perf_counter()
+        bigger = self._prefix_search(cands, len(attempt.nodes) + 1, len(cands))
+        self._phase("escalate_search", time.perf_counter() - t0)
+        # compare SAVINGS, not node counts: candidates are disruption-ordered,
+        # so a longer prefix of cheap nodes can be worth less than a confirmed
+        # per-type subset of expensive ones
+        if (bigger is not None and bigger.kind == "delete"
+                and bigger.savings > attempt.savings):
+            return bigger
+        return attempt
+
+    def _multi_subsets(self, cand_idx, cands, idx_of) -> List[List[int]]:
+        """Structured subsets (node indices) worth screening: disruption-cost
+        prefixes (always including the full candidate set), per-instance-type
+        groups, per-zone groups."""
+        subsets: List[List[int]] = []
+        seen = set()
+        dropped = 0
+
+        def add(ix):
+            nonlocal dropped
+            ix = sorted(set(ix))
+            if len(ix) < 2:
+                return
+            key = tuple(ix)
+            if key in seen:
+                return
+            if len(subsets) >= MAX_SUBSETS:
+                dropped += 1
+                return
+            seen.add(key)
+            subsets.append(ix)
+
+        size = 2
+        while size <= len(cand_idx):
+            add(cand_idx[:size])
+            size = size + 1 if size < 4 else int(size * 1.5)
+        add(cand_idx)  # the geometric ladder can step over the full set
+        by_type: Dict[str, List[int]] = {}
+        by_zone: Dict[str, List[int]] = {}
+        for _, ns in cands:
+            i = idx_of.get(ns.node.name)
+            if i is None:
+                continue
+            by_type.setdefault(ns.node.instance_type, []).append(i)
+            by_zone.setdefault(ns.node.zone, []).append(i)
+        for group in list(by_type.values()) + list(by_zone.values()):
+            add(group[:8])
+            add(group[:4])
+        if dropped and dropped != self._last_subset_drop:
+            # change-gated (pretty.ChangeMonitor analog): a large cluster
+            # silently degrading to the prefix heuristic should be visible
+            logger.info(
+                "consolidation screen capped: %d structured subsets dropped "
+                "(MAX_SUBSETS=%d, candidates=%d)", dropped, MAX_SUBSETS, len(cand_idx)
+            )
+        self._last_subset_drop = dropped
+        return subsets
+
+    #: exact-confirm at most this many screened subset hits per pass (the
+    #: screen is resource-only; topology-heavy clusters can produce false
+    #: hits, and each confirm is a full solver what-if)
+    MAX_SUBSET_CONFIRMS = 3
+
+    def _confirm_subsets(self, cands, all_nodes, idx_of, subsets,
+                         deletable) -> Optional[Action]:
+        """Exact-confirm the top screened multi-subset deletes by savings."""
+        ns_of = {idx_of[ns.node.name]: ns for _, ns in cands
+                 if ns.node.name in idx_of}
+        hits = [
+            (sum(all_nodes[i].price for i in subset), subset)
+            for k, subset in enumerate(subsets) if deletable[k]
+        ]
+        hits.sort(key=lambda t: (-t[0], t[1]))
+        overflow = max(0, len(hits) - self.MAX_SUBSET_CONFIRMS)
+        if overflow and overflow != self._last_confirm_drop:
+            logger.info(
+                "consolidation confirms capped: %d screened subset hits not "
+                "exact-confirmed this pass (MAX_SUBSET_CONFIRMS=%d)",
+                overflow, self.MAX_SUBSET_CONFIRMS,
+            )
+        self._last_confirm_drop = overflow
+        batch = []
+        for _, subset in hits[: self.MAX_SUBSET_CONFIRMS]:
+            targets = [ns_of[i] for i in subset if i in ns_of]
+            if len(targets) == len(subset):
+                batch.append(targets)
+        # all top hits confirm in one sweep dispatch; first (highest
+        # savings) confirmed delete wins, like the serial loop it replaces
+        for attempt in self._simulate_batch(
+            batch, stop_on=lambda a: a is not None and a.kind == "delete",
+        ):
+            if attempt is not None and attempt.kind == "delete":
+                return attempt
+        return None
+
+    def _simulate(self, targets: Sequence[NodeState]) -> Optional[Action]:
+        """Can these nodes' pods fit on the remaining nodes + <=1 cheaper new
+        node?  (the §3.3 what-if — runs on the batch solver)."""
+        target_names = {ns.node.name for ns in targets}
+        pods: List[PodSpec] = [p for ns in targets for p in ns.node.pods
+                               if not p.is_daemon]
+        t0 = time.perf_counter()
+        result = self._solve_what_if(pods, target_names)
+        self._phase("what_if_solve", time.perf_counter() - t0)
+        return self._action_from_what_if(targets, result)
+
+    def _action_from_what_if(
+        self, targets: Sequence[NodeState], result: SolveResult,
+    ) -> Optional[Action]:
+        """Map one what-if result to a consolidation action (shared by the
+        serial `_simulate` and the batched `_simulate_batch`, so decision
+        semantics cannot diverge between the two)."""
+        if result.infeasible:
+            return None
+        target_names = {ns.node.name for ns in targets}
+        current_cost = sum(ns.node.price for ns in targets)
+        new_cost = result.new_node_cost
+        if new_cost <= 0:
+            return Action("delete", "consolidation", sorted(target_names),
+                          savings=current_cost)
+        # replacement path: must be strictly cheaper, and spot nodes are
+        # delete-only (deprovisioning.md:83-85)
+        if any(ns.node.capacity_type == L.CAPACITY_TYPE_SPOT for ns in targets):
+            return None
+        if new_cost >= current_cost:
+            return None
+        return Action(
+            "replace", "consolidation", sorted(target_names),
+            replacement=result.nodes[0], savings=current_cost - new_cost,
+        )
+
+    def _simulate_batch(
+        self, targets_list: Sequence[Sequence[NodeState]],
+        stop_on=None,
+    ) -> List[Optional[Action]]:
+        """Batched what-ifs: every candidate evaluated as one slot of a
+        single vmapped device dispatch (solver/consolidation.sweep_what_ifs
+        — one dispatch + one fence instead of one solver round trip per
+        candidate), with per-slot boxed exceptions so one poisoned
+        candidate skips itself instead of failing the pass.  Decisions are
+        identical to looping `_simulate` over the candidates (non-clean
+        slots re-solve through the identical serial path).
+
+        ``stop_on(action)`` — optional predicate matching the caller's
+        first-hit return condition: when the sweep degrades to the serial
+        path (oracle backend, cold shape, breaker open), the fill stops at
+        the first candidate whose action satisfies it — exactly where the
+        pre-sweep serial loop stopped — leaving later entries ``None``
+        instead of paying full what-if solves the caller never reads."""
+        if not targets_list:
+            return []
+        from ..solver.consolidation import sweep_what_ifs
+
+        out: List[Optional[Action]] = [None] * len(targets_list)
+        # volume pins must be current before simulating a move, and an
+        # unresolvable claim aborts that candidate — same contract as
+        # _solve_what_if, applied per candidate
+        vt = self.state.volume_topology
+        all_nodes = self.state.schedulable_nodes()
+        idx_of = {n.name: i for i, n in enumerate(all_nodes)}
+        cands: List[List[int]] = []
+        order: List[int] = []
+        for i, targets in enumerate(targets_list):
+            pods = [p for ns in targets for p in ns.node.pods
+                    if not p.is_daemon]
+            bad = False
+            for p in pods:
+                if p.volume_claims and vt.inject(p):
+                    bad = True
+                    break
+            if bad:
+                continue  # stays None: volume claim unresolvable
+            idxs = [idx_of[ns.node.name] for ns in targets
+                    if ns.node.name in idx_of]
+            if len(idxs) != len(targets):
+                continue  # a target left the schedulable set mid-pass
+            cands.append(idxs)
+            order.append(i)
+        if not cands:
+            return out
+        provisioners = [p.with_defaults()
+                        for p in self.state.provisioners.values()]
+        trace = self._eval_trace or NULL_TRACE
+        actions: dict = {}
+
+        def action_at(pos, res):
+            if pos not in actions:
+                actions[pos] = self._action_from_what_if(
+                    targets_list[order[pos]], res)
+            return actions[pos]
+
+        sweep_stop = None
+        if stop_on is not None:
+            def sweep_stop(pos, res):
+                if isinstance(res, BaseException):
+                    return False
+                return stop_on(action_at(pos, res))
+        t0 = time.perf_counter()
+        with trace.span("what_if_sweep", n_candidates=len(cands)):
+            sweep = sweep_what_ifs(
+                self.scheduler, all_nodes, cands,
+                provisioners=provisioners,
+                instance_types=self.cloud.get_instance_types(),
+                daemonsets=self.state.daemonsets,
+                unavailable=(self.unavailable.as_set()
+                             if self.unavailable else None),
+                registry=self.registry, trace=trace,
+                stop_on=sweep_stop,
+            )
+        self._phase("what_if_sweep", time.perf_counter() - t0)
+        for pos, i in enumerate(order):
+            res = sweep.results[pos]
+            if res is None:
+                continue  # past a stop_on early exit on the serial path
+            if isinstance(res, BaseException):
+                logger.warning(
+                    "what-if for %s failed; candidate skipped this pass: %r",
+                    sorted(ns.node.name for ns in targets_list[i]), res,
+                )
+                continue
+            out[i] = action_at(pos, res)
+        return out
+
+    # ---- execution --------------------------------------------------------
+    def _solve_what_if(self, pods: List[PodSpec], exclude: set):
+        """The §3.3 what-if: schedule ``pods`` onto the cluster minus
+        ``exclude`` plus at most one new node (shared by the consolidation
+        simulate and the drift/expiration replacement planner)."""
+        # volume pins must be current before simulating a move: a wffc claim
+        # that bound since the pod was scheduled restricts where the pod may
+        # be relocated (scheduling.md:378-433).  Unresolvable claims abort
+        # the what-if — relocating such a pod could strand it off-zone.
+        vt = self.state.volume_topology
+        for p in pods:
+            if p.volume_claims and vt.inject(p):
+                return SolveResult(
+                    nodes=[], assignments={},
+                    infeasible={p.name: "volume claim unresolvable"},
+                )
+        others = [
+            n for n in self.state.schedulable_nodes() if n.name not in exclude
+        ]
+        provisioners = [p.with_defaults() for p in self.state.provisioners.values()]
+        trace = self._eval_trace or NULL_TRACE
+        with trace.span("what_if", n_pods=len(pods), n_excluded=len(exclude)):
+            return self.scheduler.solve(
+                pods, provisioners, self.cloud.get_instance_types(),
+                existing_nodes=others, daemonsets=self.state.daemonsets,
+                unavailable=self.unavailable.as_set() if self.unavailable else None,
+                allow_new_nodes=True, max_new_nodes=1,
+                trace=trace,
+            )
+
+    def _plan_replacement(self, action: Action) -> Tuple[str, Optional[SimNode]]:
+        """Size a replacement for a drift/expiration replace: can the nodes'
+        pods fit on the rest of the cluster plus at most one new node?
+        Returns ("none-needed", None) when the pods fit on the remaining
+        cluster (plain terminate preserves availability), ("planned", node)
+        with the replacement to launch first, or ("infeasible", None) when the
+        pods cannot be rescheduled even with a new node — in which case the
+        action must be aborted, NOT executed, to preserve the
+        launch-before-delete invariant (consolidation.md:15).  Daemon pods are
+        excluded: their daemonsets recreate them on the replacement, already
+        accounted via the solve's daemonset overhead."""
+        names = set(action.nodes)
+        targets = [self.state.nodes[n] for n in action.nodes if n in self.state.nodes]
+        pods = [p for ns in targets for p in ns.node.pods if not p.is_daemon]
+        if not pods:
+            return "none-needed", None
+        result = self._solve_what_if(pods, names)
+        if result.infeasible:
+            return "infeasible", None
+        if not result.nodes:
+            return "none-needed", None
+        return "planned", result.nodes[0]
+
+    def _count_action(self, action: Action) -> None:
+        # ktlint: allow[KT003] the label is a kind/mechanism cross product
+        # whose mechanism set is extended by config (drift/expiry toggles);
+        # pre-creating a partial matrix would be worse than none
+        self.registry.counter(DEPROVISIONING_ACTIONS).inc(
+            {"action": f"{action.kind}/{action.mechanism}"}
+        )
+
+    def _execute(self, action: Action) -> bool:
+        """Carry out the action.  Returns True when it actually took effect
+        (replacement launched and/or nodes terminated); False when aborted
+        (infeasible replacement plan, failed create) — aborted actions do not
+        count toward the actions metric and are not reported as executed."""
+        replacement = action.replacement
+        if action.kind == "replace" and replacement is None and self.provisioning is not None:
+            # drift/expiration replaces also launch-then-wait
+            # (designs/deprovisioning.md: the replacement path is shared by
+            # all replace mechanisms, not just consolidation); planning is
+            # pointless without a provisioning controller to launch through
+            plan, replacement = self._plan_replacement(action)
+            if plan == "infeasible":
+                # the pods cannot be rescheduled even with a new node: abort
+                # rather than evicting into nowhere (the reference skips
+                # candidates whose pods cannot be rescheduled), and arm the
+                # per-node cool-off so drift/expiry doesn't hot-retry
+                retry_at = self.clock.now() + REPLACE_RETRY_BACKOFF
+                for name in action.nodes:
+                    self._replace_backoff[name] = retry_at
+                self.recorder.publish(Event(
+                    "Node", action.nodes[0], "ReplacementInfeasible",
+                    f"{action.mechanism}: pods cannot be rescheduled onto the "
+                    "remaining cluster plus one new node; deferring", "Warning",
+                ))
+                return False
+        if action.kind == "replace" and replacement is not None:
+            # launch the replacement BEFORE deleting (consolidation.md:15)
+            if self.provisioning is not None:
+                machine = self.provisioning._machine_for(
+                    replacement,
+                    [p.with_defaults() for p in self.state.provisioners.values()],
+                )
+                try:
+                    machine = self.provisioning.cloud.create(machine)
+                except Exception as err:  # ICE etc: abort the action
+                    from ..cloud.base import InsufficientCapacityError
+
+                    logger.warning(
+                        "replacement launch for %s failed (%r); action "
+                        "aborted, backoffs armed", action.nodes, err,
+                    )
+                    if isinstance(err, InsufficientCapacityError) and self.unavailable:
+                        # feed the ICE cache so the next solve routes around it
+                        self.unavailable.mark_unavailable(
+                            err.instance_type, err.zone, err.capacity_type
+                        )
+                    # arm both backoffs so the same doomed action isn't
+                    # hot-retried: seqnum gates consolidation, the per-node
+                    # cool-off gates the time-based mechanisms (drift/expiry)
+                    self._last_seqnum = self.state.seqnum
+                    self._last_eval_at = self.clock.now()
+                    retry_at = self.clock.now() + REPLACE_RETRY_BACKOFF
+                    for name in action.nodes:
+                        self._replace_backoff[name] = retry_at
+                    self.recorder.publish(Event(
+                        "Machine", machine.name, "ReplacementFailed", str(err), "Warning"
+                    ))
+                    return False
+                node = SimNode(
+                    instance_type=machine.instance_type,
+                    provisioner=machine.provisioner,
+                    zone=machine.zone,
+                    capacity_type=machine.capacity_type,
+                    price=machine.price,
+                    allocatable=dict(machine.allocatable),
+                    labels=dict(machine.labels),
+                    taints=list(machine.taints),
+                    existing=True,
+                    name=machine.node_name,  # "" -> SimNode default counter
+                    created_at=self.clock.now(),
+                )
+                node.labels[L.HOSTNAME] = node.name
+                ns = self.state.add_node(node, machine=machine)
+                ready_delay = getattr(self.cloud, "node_ready_delay", 0.0)
+                if ready_delay > 0:
+                    # wait-ready: old nodes survive until the replacement
+                    # registers and initializes (or the ~9.5-min deadline
+                    # passes); the nomination shields the replacement from
+                    # consolidation while it is still empty.
+                    deadline = self.clock.now() + REPLACEMENT_READY_TIMEOUT
+                    self.state.nominate(node.name, ttl=REPLACEMENT_READY_TIMEOUT)
+                    self._pending = PendingReplacement(
+                        node.name, list(action.nodes), deadline, action.savings,
+                        mechanism=action.mechanism,
+                    )
+                    self.recorder.publish(Event(
+                        "Node", node.name, "WaitingOnReadiness",
+                        f"replacement for {','.join(action.nodes)} launched; "
+                        f"waiting up to {REPLACEMENT_READY_TIMEOUT:.0f}s for readiness",
+                    ))
+                    self._count_action(action)  # committed: replacement launched
+                    return True
+                ns.initialized = True
+        self._count_action(action)
+        self._terminate(action.nodes, action.mechanism, action.kind, action.savings)
+        return True
+
+    def _terminate(self, nodes: Sequence[str], mechanism: str, kind: str,
+                   savings: float) -> None:
+        for name in nodes:
+            self.recorder.publish(Event(
+                "Node", name, "DeprovisioningTriggered",
+                f"{mechanism}: {kind} (saves ${savings:.3f}/hr)",
+            ))
+            self.termination.begin(name)
+        self.termination.reconcile()
+
+    def _finish_pending(self) -> None:
+        """Advance the wait-ready state machine: terminate the old nodes once
+        the replacement initializes; abandon (and reap the replacement) if the
+        readiness deadline passes first."""
+        p = self._pending
+        assert p is not None
+        now = self.clock.now()
+        ns = self.state.nodes.get(p.replacement)
+        if ns is None:
+            # replacement vanished (interrupted/GC'd): abandon, keep old nodes
+            self._pending = None
+            return
+        ready_delay = getattr(self.cloud, "node_ready_delay", 0.0)
+        if not ns.initialized and now - ns.node.created_at >= ready_delay:
+            ns.initialized = True  # registered + passed readiness (sim kubelet)
+        if ns.initialized:
+            self._pending = None
+            self._terminate(p.old_nodes, p.mechanism, "replace", p.savings)
+            self._last_action_at = now
+            return
+        if now >= p.deadline:
+            self._pending = None
+            self.recorder.publish(Event(
+                "Node", p.replacement, "ReplacementTimedOut",
+                "replacement did not become ready in time; abandoning "
+                f"{p.mechanism} and reaping the replacement", "Warning",
+            ))
+            self._terminate([p.replacement], p.mechanism, "abandon", 0.0)
+            # arm both backoffs (like the create-failure path) so the same
+            # doomed replace isn't immediately re-proposed; read the seqnum
+            # AFTER the reap, which itself bumps it
+            retry_at = now + REPLACE_RETRY_BACKOFF
+            for name in p.old_nodes:
+                self._replace_backoff[name] = retry_at
+            self._last_seqnum = self.state.seqnum
+            self._last_eval_at = now

@@ -2,14 +2,17 @@
 (name, labels), with the metric names the ported solver path records.
 
 A copy of the reference package's ``metrics.Registry`` as far as the
-solver path uses it (counters, gauges, histograms; no text exposition, no
-cloud-provider decorator);
+solver path and the controllers use it (counters, gauges, histograms, and
+``decorate(provider)``, which wraps every CloudProvider method in a
+duration histogram; no text exposition);
 the metric names are the reference's, so a scrape of either package reads
-the same series.
+the same series.  :data:`INVENTORY` carries the help text of the names the
+controllers, the cloud provider and the tracer record.
 """
 
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
@@ -123,3 +126,120 @@ HIER_BLOCKS = "karpenter_solver_hier_blocks"
 HIER_PRICE_ITERATIONS = "karpenter_solver_hier_price_iterations"
 HIER_REPAIR_PODS = "karpenter_solver_hier_repair_pods"
 HIER_DURATION = "karpenter_solver_hier_duration_seconds"
+
+# controllers, cloud provider and tracing (reference metrics.py:142-186)
+CLOUDPROVIDER_DURATION = "karpenter_cloudprovider_duration_seconds"
+NODES_CREATED = "karpenter_nodes_created_total"
+NODES_TERMINATED = "karpenter_nodes_terminated_total"
+DEPROVISIONING_ACTIONS = "karpenter_deprovisioning_actions_performed_total"
+DEPROVISIONING_DURATION = "karpenter_deprovisioning_evaluation_duration_seconds"
+PODS_STARTUP_DURATION = "karpenter_pods_startup_time_seconds"
+PROVISIONER_USAGE = "karpenter_provisioner_usage"
+PROVISIONER_LIMIT = "karpenter_provisioner_limit"
+BATCH_SIZE = "karpenter_provisioner_batch_size"
+TRACE_TRACES = "karpenter_trace_traces_total"
+TRACE_SPAN_DURATION = "karpenter_trace_span_duration_seconds"
+TRACE_RING_EVICTIONS = "karpenter_trace_ring_evictions_total"
+FLIGHT_DUMPS = "karpenter_trace_flight_recorder_dumps_total"
+TRACE_REMOTE_SPANS = "karpenter_trace_remote_spans_total"
+#: how each server-side RPC trace rooted (KT003 zero-init source, shared by
+#: Tracer construction): 'adopted' (the request carried a wire trace
+#: context and this trace joined the remote parent's tree) vs 'local' (no
+#: context on the wire — an old client, a direct call, or an unsampled
+#: origin; the trace rooted locally)
+TRACE_REMOTE_OUTCOMES = ("adopted", "local")
+
+#: metric inventory of the names above: name -> (type, labels, help), the
+#: reference's help text
+INVENTORY = {
+    CLOUDPROVIDER_DURATION: (
+        "histogram", ("controller", "method"),
+        "Duration of each CloudProvider method call (metrics decorator)."),
+    NODES_CREATED: (
+        "counter", ("provisioner",),
+        "Nodes launched, by provisioner."),
+    NODES_TERMINATED: (
+        "counter", ("provisioner",),
+        "Nodes terminated, by provisioner."),
+    DEPROVISIONING_ACTIONS: (
+        "counter", ("action",),
+        "Deprovisioning actions performed (kind/mechanism)."),
+    DEPROVISIONING_DURATION: (
+        "histogram", (),
+        "Deprovisioning evaluation pass duration, seconds."),
+    PODS_STARTUP_DURATION: (
+        "histogram", (),
+        "Time from pod creation to bound-and-running, seconds."),
+    PROVISIONER_USAGE: (
+        "gauge", ("provisioner", "resource_type"),
+        "Resource usage accounted against each provisioner's limits."),
+    PROVISIONER_LIMIT: (
+        "gauge", ("provisioner", "resource_type"),
+        "Configured provisioner resource limits."),
+    BATCH_SIZE: (
+        "histogram", (),
+        "Pending pods per provisioning batch window."),
+    TRACE_TRACES: (
+        "counter", (),
+        "Per-solve traces recorded by the tracer (obs/trace.py); one per "
+        "sampled solve/provision/deprovision pass.  KT_TRACE=0 disables "
+        "sampling entirely, KT_TRACE_SAMPLE_EVERY=N keeps 1 in N."),
+    TRACE_SPAN_DURATION: (
+        "histogram", ("span",),
+        "Duration of each named trace span (window / tensorize / dispatch "
+        "/ fence / reseat / respond / ...), seconds — the per-phase "
+        "attribution behind /tracez p50/p99."),
+    TRACE_RING_EVICTIONS: (
+        "counter", (),
+        "Traces evicted from the flight recorder's bounded ring to admit "
+        "newer ones (ring capacity: KT_FLIGHT_TRACES)."),
+    FLIGHT_DUMPS: (
+        "counter", ("reason",),
+        "Flight-recorder dumps triggered by anomaly, by reason: "
+        "device_hang (hang-guard trip), degraded_solve (warm-tier serve "
+        "while the device tier is latched unhealthy), budget_breach (a "
+        "trace exceeded KT_TRACE_SLOW_S), sanitizer_error (KT_SANITIZE "
+        "lock-discipline violation).  Each dump's JSON envelope (and its "
+        "KT_FLIGHT_DIR file name) carries the dumping replica_id and, "
+        "when attributable, the session_id, so a fleet's dumps correlate "
+        "offline."),
+    TRACE_REMOTE_SPANS: (
+        "counter", ("outcome",),
+        "Server-side RPC traces by how they rooted (fleet-wide tracing, "
+        "docs/OBSERVABILITY.md): 'adopted' — the request carried a wire "
+        "trace context (trace_id + parent_span on SolveRequest) and this "
+        "replica's trace joined the remote parent's tree, so the whole "
+        "cross-replica request renders as ONE tree in /fleetz; 'local' — "
+        "no context on the wire (old client, direct call, unsampled "
+        "origin) and the trace rooted locally."),
+}
+
+
+def decorate(provider, reg: Optional[Registry] = None):
+    """Wrap every public method of a CloudProvider in a duration histogram
+    (core metrics.Decorate analog)."""
+    reg = reg or registry
+    hist = reg.histogram(CLOUDPROVIDER_DURATION)
+
+    class Decorated:
+        def __init__(self, inner):
+            self._inner = inner
+
+        def __getattr__(self, name):
+            attr = getattr(self._inner, name)
+            if not callable(attr) or name.startswith("_"):
+                return attr
+
+            def wrapped(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return attr(*args, **kw)
+                finally:
+                    hist.observe(
+                        time.perf_counter() - t0,
+                        {"controller": "cloudprovider", "method": name},
+                    )
+
+            return wrapped
+
+    return Decorated(provider)

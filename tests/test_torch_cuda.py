@@ -13,7 +13,8 @@ L2), at every base-pointer offset mod 16, and past the shared-memory cap
 (the unstaged variant); ``price_step_scores`` on the CPU suite's cases
 (``chip_smoke.step_cases``) and at every offset.  The plain-PyTorch device
 programs give the same bits on ``cuda`` as on ``cpu``: the relax program
-(and its exp) and the consolidation screen.
+(and its exp) and the consolidation screen.  The controllers' repack loop
+makes the same decisions on ``cuda`` as on ``cpu``.
 """
 
 import numpy as np
@@ -212,3 +213,26 @@ def test_screen_cuda_equals_cpu(cuda):
         c = cons.screen_subset_deletes(*args[:3], pmax_total=args[3],
                                        device="cpu")
         assert g.deletable.tolist() == c.deletable.tolist()
+
+
+def test_repack_controllers_cuda_equals_cpu(cuda):
+    """The controllers' repack loop (chip_smoke phase 9(c), 60 nodes): the
+    same actions, final cluster and bindings on ``cuda`` as on ``cpu``,
+    with the screen run on the card."""
+    from karpenter_tpu_torch import repack
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.solver import consolidation as cons
+
+    catalog = generate_catalog(full=True)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        repack.reset_name_counters()
+        cons.SCREEN_PROGRAM.reset()
+        state, info, keys = repack.repack_to_convergence(catalog, 60,
+                                                         "auto", dev)
+        assert repack.cluster_faults(state) == []
+        assert info["pending_end"] == 0
+        assert info["final_cost"] < info["initial_cost"]
+        assert cons.SCREEN_PROGRAM.get(dev) >= 1
+        runs[dev] = (keys, repack.cluster_plan(state), dict(state.bindings))
+    assert runs["cuda"] == runs["cpu"]

@@ -70,7 +70,15 @@ def test_every_module_is_probed():
     assert "karpenter_tpu_torch.kernels" in MODULES
     assert "karpenter_tpu_torch.solver.relax" in MODULES
     assert "karpenter_tpu_torch.solver.consolidation" in MODULES
-    assert len(MODULES) >= 26
+    for name in ("utils.clock", "events", "models.machine", "models.pdb",
+                 "models.volume", "settings", "cloud.templates", "cloud.base",
+                 "cloud.launchpath", "cloud.fake", "webhooks", "cache",
+                 "batcher", "metrics", "obs", "obs.trace", "obs.recorder",
+                 "controllers.state", "controllers.termination",
+                 "controllers.provisioning", "controllers.deprovisioning",
+                 "repack"):
+        assert f"karpenter_tpu_torch.{name}" in MODULES
+    assert len(MODULES) >= 48
 
 
 @pytest.mark.parametrize("module", MODULES + ["chip_smoke"])
@@ -95,6 +103,28 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert BatchScheduler(device="cpu").device == torch.device("cpu")
+
+
+def test_controllers_default_scheduler_raises_without_cuda(monkeypatch):
+    from karpenter_tpu_torch.cloud.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.deprovisioning import (
+        DeprovisioningController,
+    )
+    from karpenter_tpu_torch.controllers.provisioning import (
+        ProvisioningController,
+    )
+    from karpenter_tpu_torch.controllers.state import ClusterState
+    from karpenter_tpu_torch.controllers.termination import (
+        TerminationController,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    state, cloud = ClusterState(), FakeCloudProvider([])
+    term = TerminationController(state, cloud)
+    for make in (lambda: ProvisioningController(state, cloud),
+                 lambda: DeprovisioningController(state, cloud, term)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
