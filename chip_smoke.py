@@ -59,12 +59,30 @@ no result):
    100-node fleet driven to convergence on ``cuda`` and on ``cpu``: equal
    actions, final cluster and bindings.  The sizes are cut from the
    reference bench's 5,000 and 2,000 nodes to fit the time
-   (:data:`REPACK_SIZES`).
+   (:data:`REPACK_SIZES`);
+10. serving — (a) the reference bench's 32 serving requests (320 pods in 8
+    zone-spread groups each, small catalog) through
+    ``BatchScheduler(backend="auto").submit_many`` in flushes of 1, 8 and
+    32 against the 32 solved one by one (the serial baseline): every
+    flushed plan equal to its solo plan node for node, the 32-flush on
+    ``cpu`` equal or ``placements_tie``, ``MEGABATCH_SLOTS`` at 1, 8 and
+    32, no cold fallback; an 8-flush's launches and host syncs (enqueue
+    and read-back); (b) the slice's 100,000-pod batch under the slice's
+    limit in one flush beside 7 serving requests: hierarchical routing,
+    one ``price_step_scores`` launch per price iteration, the slice's
+    plan, the serving plans equal to their solo plans; (c) the bench's
+    ``measure_warmstart`` chain (20,000 unconstrained pods, 40 steps of 8
+    removals and 8 adds through ``TpuSolver.solve_delta``): step p50/p99,
+    modes, fallbacks, the final cost within 1.02 of a fresh solve; (d) 20
+    ``BatchScheduler.solve_delta`` steps on the device backend from the
+    same base, each adding one zone-spread deployment (the scan tier), on
+    ``cuda`` and on ``cpu``: the same modes and final cluster.
 
 Launch counts (the hand-written kernels', and the relax and screen
 programs' runs) are zeroed just before each path is driven and read just
-after; no hand-written kernel is on the relax, consolidation or repack
-path, so their kernel counts read 0 there.  The last two lines are the kernel table (``{"kernels": [...]}``) and
+after; no hand-written kernel is on the relax, consolidation, repack,
+serving-request or delta path, so their kernel counts read 0 there (the
+kernel table adds phase 10(b)'s launches to the slice's).  The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -822,6 +840,32 @@ def count_launches(fn):
     return n or None
 
 
+def profile_busy(fn) -> dict:
+    """One traced call of ``fn`` (torch.profiler): its CUDA kernel launches,
+    the device time of its kernels, the traced wall, and their ratio (the
+    device's busy share, under tracing; None when no kernel time is
+    recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith("cudaLaunchKernel"))
+    return dict(launches=launches or None, kernel_ms=kernel_us / 1000.0,
+                traced_wall_ms=wall_ms,
+                busy_share=(kernel_us / 1000.0 / wall_ms) if kernel_us
+                else None)
+
+
 def _first_diff(a, b):
     """The first differing entry of two node plans, by type, zone, price
     and pod count (None when the plans are equal)."""
@@ -1329,6 +1373,456 @@ def phase_controllers(slice_limit, slice_res, pods):
     emit("controllers", phase_s=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# serving: the megabatch collector, async dispatch and delta solving
+# ---------------------------------------------------------------------------
+
+
+#: phase 10's sizes: the reference bench's widths (``measure_throughput``'s
+#: 32 clients x 320 pods, ``measure_warmstart``'s 20,000 pods, churn 8, 40
+#: steps); the constrained chain's step count is this script's choice
+SERVING = {"clients": 32, "flushes": (1, 8, 32), "ws_pods": 20_000,
+           "churn": 8, "ws_steps": 40, "spread_steps": 20}
+
+
+def serving_pods(client: int, n_groups: int = 8, per: int = 40):
+    """One serving client's batch (the reference bench's ``_serving_pods``):
+    8 zone-spread groups of 40, the same shapes for every client (one
+    bucket) but distinct pods, labels and requests per client."""
+    from karpenter_tpu_torch.models.pod import (
+        LabelSelector,
+        PodSpec,
+        TopologySpreadConstraint,
+    )
+
+    pods = []
+    for gi in range(n_groups):
+        sel = LabelSelector.of({"app": f"c{client}-g{gi}"})
+        for i in range(per):
+            pods.append(PodSpec(
+                name=f"c{client}-g{gi}-{i}",
+                labels={"app": f"c{client}-g{gi}"},
+                requests={"cpu": 0.25 * (1 + (gi + client) % 6),
+                          "memory": float(1 + (gi + client) % 3) * GIB},
+                topology_spread=[TopologySpreadConstraint(
+                    1, ZONE, "DoNotSchedule", sel)],
+                owner_key=f"c{client}-g{gi}"))
+    return pods
+
+
+def warmstart_pods(n: int, tag: str):
+    """Unconstrained steady-state pods in 6 deployment shapes (the
+    reference bench's ``_warmstart_pods``)."""
+    from karpenter_tpu_torch.models.pod import PodSpec
+
+    return [PodSpec(
+        name=f"{tag}-{i}", labels={"app": f"ws{i % 6}"},
+        requests={"cpu": 0.25 * (1 + i % 6 % 3),
+                  "memory": (0.5 + i % 6 % 4) * 2**30},
+        owner_key=f"ws{i % 6}") for i in range(n)]
+
+
+def spread_deployment(tag: str, n: int):
+    """One new zone-spread deployment of ``n`` pods: a delta add whose
+    displaced subproblem takes the scan tier."""
+    from karpenter_tpu_torch.models.pod import (
+        LabelSelector,
+        PodSpec,
+        TopologySpreadConstraint,
+    )
+
+    sel = LabelSelector.of({"app": tag})
+    return [PodSpec(
+        name=f"{tag}-{i}", labels={"app": tag},
+        requests={"cpu": 0.5, "memory": 1.0 * GIB},
+        topology_spread=[TopologySpreadConstraint(
+            1, ZONE, "DoNotSchedule", sel)],
+        owner_key=tag) for i in range(n)]
+
+
+def names_from(start: int = 1000) -> None:
+    """Restart the auto node-name counter at ``start``: coalescing orders
+    candidates by ``(size, name)``, so two solves compare node for node
+    only from the same counter state, and 4-digit names keep a request's
+    string order its creation order."""
+    from karpenter_tpu_torch.solver import types
+
+    with types._node_lock:
+        types._node_next = start
+
+
+def flush(sched, pods_list, provs, catalog):
+    """One ``submit_many`` flush with ``.result()`` on every handle, from
+    names at 1000; returns (results, wall ms)."""
+    names_from()
+    reqs = [dict(pods=p, provisioners=provs, instance_types=catalog)
+            for p in pods_list]
+    return _sync_any(sched.device,
+                     lambda: [h.result() for h in sched.submit_many(reqs)])
+
+
+def count_syncs(fn):
+    """Host syncs ``fn`` makes on the card (``set_sync_debug_mode("warn")``
+    warnings): returns (fn's value, syncs)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def resolve_from_two_threads(sched, reqs) -> bool:
+    """One flush whose handles two threads resolve at once, in opposite
+    orders: both must get the same result objects (one read-back)."""
+    import threading
+
+    names_from()
+    handles = sched.submit_many(reqs)
+    got = [None, None]
+    barrier = threading.Barrier(2)
+
+    def resolve(i, order):
+        barrier.wait()
+        got[i] = {j: handles[j].result() for j in order}
+
+    threads = [threading.Thread(target=resolve, args=(0, range(len(reqs)))),
+               threading.Thread(target=resolve,
+                                args=(1, range(len(reqs) - 1, -1, -1)))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300.0)
+    return (not any(th.is_alive() for th in threads)
+            and all(got[0][j] is got[1][j] for j in range(len(reqs))))
+
+
+def sync_calibration() -> int:
+    """The syncs :func:`count_syncs` sees for one 4-byte copy back: 1 when
+    the count works."""
+    import torch
+
+    one = torch.zeros(1, device="cuda")
+    return count_syncs(lambda: one.cpu())[1]
+
+
+def serving_megabatch(catalog):
+    """(a): flushes of 1, 8 and 32 serving requests against the serial
+    baseline; every flushed plan against its solo plan; the 32-flush on
+    ``cpu``; one flush's launches and host syncs."""
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.metrics import (
+        MEGABATCH_SLOTS,
+        SOLVER_COLD_FALLBACKS,
+        Registry,
+    )
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    provs = [provisioner()]
+    clients = [serving_pods(c) for c in range(SERVING["clients"])]
+    reg = Registry()
+    sched = BatchScheduler(backend="auto", registry=reg)
+    # warm the request's shape alone and at the flush rungs through the
+    # warm API, as the reference bench does before it measures
+    st, _ = sched._tensorize_cache.tensorize(clients[0], provs, catalog)
+    t0 = time.perf_counter()
+    warms = [sched._tpu.warm_async(st, on_done=sched._warm_done, slots=s)
+             for s in (None,) + SERVING["flushes"][1:]]
+    while not sched._tpu.warm_idle():
+        time.sleep(0.05)
+    warm_s = time.perf_counter() - t0
+    check(all(warms) and all(sched._tpu.ready(sched._tpu.mega_signature(
+        st, slots=s)) for s in SERVING["flushes"][1:]),
+          "the serving warms did not run")
+    # the serial baseline: each request alone through solve (the rung skips
+    # zone-spread batches; relax=False keeps it the flush's path)
+    solo, serial_ms = [], []
+    for pods in clients:
+        names_from()
+        res, ms = _synced_ms(lambda pods=pods: sched.solve(
+            pods, provs, catalog, relax=False))
+        solo.append(res)
+        serial_ms.append(ms)
+    check(all(not r.infeasible for r in solo), "a serving request left "
+          "pods infeasible")
+    h = reg.histogram(MEGABATCH_SLOTS)
+    out = dict(requests=len(clients), pods_per_request=len(clients[0]),
+               groups=st.G, warm_s=warm_s,
+               serial_ms=serial_ms, serial_total_ms=sum(serial_ms),
+               serial_solves_per_s=len(clients) / (sum(serial_ms) / 1000.0))
+    flushes = {}
+    kernels.reset_counts()
+    for n in SERVING["flushes"]:
+        results, wall_ms = flush(sched, clients[:n], provs, catalog)
+        equal = [plan(r) == plan(s) for r, s in zip(results, solo)]
+        check(all(equal), f"a request of the {n}-flush planned differently "
+              f"from its solo solve ({equal.count(False)} of {n})")
+        check(not any(r.served_cold for r in results),
+              "a flushed request was served cold")
+        flushes[n] = dict(wall_ms=wall_ms,
+                          solves_per_s=n / (wall_ms / 1000.0),
+                          vs_serial=(n / (wall_ms / 1000.0))
+                          / out["serial_solves_per_s"],
+                          plans_equal_solo=sum(equal), results=results)
+    check(sum(h.totals.values()) == len(SERVING["flushes"])
+          and sum(h.sums.values()) == sum(SERVING["flushes"]),
+          f"MEGABATCH_SLOTS did not observe the rungs "
+          f"{SERVING['flushes']}: {dict(h.sums)} / {dict(h.totals)}")
+    check(reg.counter(SOLVER_COLD_FALLBACKS).get({"backend": "native"})
+          + reg.counter(SOLVER_COLD_FALLBACKS).get({"backend": "oracle"})
+          == 0, "a cold fallback was counted")
+    check(not any(k.launches for k in kernels.ALL),
+          "a hand-written kernel launched on the serving flushes")
+    # the 32-flush on the host
+    host = BatchScheduler(backend="auto", device="cpu")
+    host_res, cpu_ms = flush(host, clients, provs, catalog)
+    big = flushes[SERVING["flushes"][-1]]["results"]
+    cpu_equal = [plan(a) == plan(b) for a, b in zip(big, host_res)]
+    check(all(e or placements_tie(a, b)
+              for e, a, b in zip(cpu_equal, big, host_res)),
+          "the 32-flush on cuda and on cpu disagree")
+    # one 8-flush's launches (profiler) and host syncs, split into the
+    # enqueue half (submit_many) and the read-back half (.result())
+    reqs = [dict(pods=p, provisioners=provs, instance_types=catalog)
+            for p in clients[:8]]
+    traced = profile_busy(
+        lambda: [x.result() for x in sched.submit_many(reqs)])
+    names_from()
+    handles, enqueue_syncs = count_syncs(lambda: sched.submit_many(reqs))
+    _r, read_syncs = count_syncs(lambda: [x.result() for x in handles])
+    calibration = sync_calibration()
+    threads_agree = resolve_from_two_threads(sched, reqs)
+    check(threads_agree, "two threads resolving one flush disagree")
+    for n in flushes:
+        flushes[n].pop("results")
+    out.update(flushes={str(n): v for n, v in flushes.items()},
+               cpu_flush32_plans_equal=sum(cpu_equal),
+               cpu_flush32_ms=cpu_ms, traced_flush8=traced,
+               host_syncs_flush8=dict(enqueue=enqueue_syncs,
+                                      read_back=read_syncs,
+                                      one_copy_back=calibration),
+               two_thread_resolve_equal=threads_agree)
+    return sched, solo, out
+
+
+def serving_hier_flush(sched, solo, small, full, limit, slice_res):
+    """(b): the slice's 100,000-pod batch (full catalog, the slice's limit)
+    in one flush beside 7 serving requests (small catalog, as in (a))."""
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.metrics import HIER_SOLVES
+
+    big = deployments(40, 2500)
+    clients = [serving_pods(c) for c in range(7)]
+    reqs = [dict(pods=big, provisioners=[provisioner(limit)],
+                 instance_types=full)]
+    reqs += [dict(pods=p, provisioners=[provisioner()],
+                  instance_types=small) for p in clients]
+    hier0 = sched.registry.counter(HIER_SOLVES).get({"path": "hierarchical"})
+    names_from()
+    kernels.reset_counts()
+    results, wall_ms = _synced_ms(
+        lambda: [h.result() for h in sched.submit_many(reqs)])
+    launches = {k.name: k.launches for k in kernels.ALL}
+    stats = dict(sched.hier_stats)
+    check(sched.registry.counter(HIER_SOLVES).get({"path": "hierarchical"})
+          == hier0 + 1, "the flush's 100,000-pod request did not route "
+          "hierarchically")
+    check(launches["price_step_score"] >= 1
+          and launches["price_step_score"] == stats["price_iters"],
+          "price_step_score launches != price iterations in the flush")
+    check(launches["packed_score"] == 0,
+          "the flush launched the price-row entry")
+    res = results[0]
+    equal = plan(res) == plan(slice_res)
+    tie = placements_tie(res, slice_res)
+    check(equal or tie, "the flushed hierarchical plan differs from the "
+          "slice phase's")
+    serving_equal = [plan(r) == plan(s) for r, s in zip(results[1:], solo)]
+    check(all(serving_equal), "a serving request beside the hierarchical "
+          "one planned differently from its solo solve")
+    return launches, dict(
+        wall_ms=wall_ms, hier_total_ms=stats["total_ms"],
+        price_iters=stats["price_iters"], launches=launches,
+        nodes=len(res.nodes), cost=res.new_node_cost,
+        infeasible=len(res.infeasible), plan_equal_slice=equal,
+        placements_tie_slice=tie, serving_plans_equal_solo=sum(serving_equal))
+
+
+def percentile(times, q):
+    """The bench's percentile: the sorted sample at index int(q * (n-1))."""
+    s = sorted(times)
+    return s[int(q * (len(s) - 1))]
+
+
+def serving_delta_unconstrained(catalog):
+    """(c): the reference bench's ``measure_warmstart`` on the card."""
+    import random
+
+    from karpenter_tpu_torch.metrics import Registry
+    from karpenter_tpu_torch.models.tensorize import TensorizeCache, tensorize
+    from karpenter_tpu_torch.solver.tpu import TpuSolver
+
+    provs = [provisioner()]
+    pods = warmstart_pods(SERVING["ws_pods"], "ws")
+    solver = TpuSolver()
+    cache = TensorizeCache()
+    names_from()
+    st, _ = cache.tensorize(pods, provs, catalog)
+    cur, base_ms = _synced_ms(lambda: solver.solve(st).result)
+    reg = Registry()
+    rng = random.Random(7)
+    live = [p.name for p in pods]
+    times, modes, fell_back = [], {}, 0
+    for k in range(SERVING["ws_steps"]):
+        rm = rng.sample(live, SERVING["churn"])
+        rms = set(rm)
+        live = [n for n in live if n not in rms]
+        add = warmstart_pods(SERVING["churn"], f"wsc{k}")
+        out = solver.solve_delta(
+            cur, added=add, removed=rm, provisioners=provs,
+            instance_types=catalog, tensorize_cache=cache, registry=reg)
+        cur = out.result
+        live += [p.name for p in add]
+        if k > 0:  # step 0 pays the one-time chain-metadata build
+            times.append(out.solve_ms)
+        modes[out.mode] = modes.get(out.mode, 0) + 1
+        fell_back += int(out.fell_back)
+    all_pods = [p for n in list(cur.existing_nodes) + list(cur.nodes)
+                for p in n.pods if p.name in cur.assignments]
+    check(len(all_pods) == SERVING["ws_pods"] and not cur.infeasible,
+          "the chain lost or left a pod")
+    full, full_ms = _synced_ms(
+        lambda: solver.solve(tensorize(all_pods, provs, catalog)).result)
+    ratio = cur.new_node_cost / full.new_node_cost
+    check(ratio <= 1.02, f"the chain's cost is {ratio} of a fresh solve's "
+          f"(the contract is <= 1.02)")
+    return dict(pods=SERVING["ws_pods"], churn=SERVING["churn"],
+                steps=SERVING["ws_steps"], base_solve_ms=base_ms,
+                p50_ms=percentile(times, 0.5), p99_ms=percentile(times, 0.99),
+                max_ms=max(times), modes=modes, full_fallbacks=fell_back,
+                cost=cur.new_node_cost, fresh_cost=full.new_node_cost,
+                cost_ratio=ratio, fresh_solve_ms=full_ms,
+                nodes=len(cur.nodes))
+
+
+def constrained_chain(device, n_pods: int, steps: int, churn: int = 8):
+    """``BatchScheduler.solve_delta`` on the device backend from an
+    unconstrained base of ``n_pods``: each step removes ``churn`` pods
+    (``random.Random(7)``) and adds one new zone-spread deployment of
+    ``churn`` pods, whose displaced subproblem takes the scan tier.
+    Returns (modes, final result, step walls ms, base wall ms)."""
+    import random
+
+    from karpenter_tpu_torch.metrics import Registry
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    catalog = generate_catalog(full=False)
+    provs = [provisioner()]
+    sched = BatchScheduler(backend="tpu", device=device, registry=Registry())
+    pods = warmstart_pods(n_pods, "cs")
+    names_from()
+    cur, base_ms = _sync_any(device, lambda: sched.solve(
+        pods, provs, catalog, relax=False))
+    rng = random.Random(7)
+    live = [p.name for p in pods]
+    modes, walls = [], []
+    for k in range(steps):
+        rm = rng.sample(live, churn)
+        rms = set(rm)
+        live = [n for n in live if n not in rms]
+        add = spread_deployment(f"sp{k}", churn)
+        out, ms = _sync_any(device, lambda cur=cur, add=add, rm=rm:
+                            sched.solve_delta(cur, added=add, removed=rm,
+                                              provisioners=provs,
+                                              instance_types=catalog))
+        cur = out.result
+        live += [p.name for p in add]
+        modes.append(out.mode)
+        walls.append(ms)
+    return modes, cur, walls, base_ms
+
+
+def _sync_any(device, fn):
+    """(fn's value, wall ms), synchronising the card around it unless
+    ``device`` is the host."""
+    if str(device) == "cpu":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1000.0
+    return _synced_ms(fn)
+
+
+def check_seated(res, n_expected: int) -> None:
+    """Every pod seated exactly once, or typed infeasible."""
+    seated = [p.name for n in list(res.existing_nodes) + list(res.nodes)
+              for p in n.pods]
+    check(len(seated) == len(set(seated)), "a pod is seated twice")
+    check(set(res.assignments) == set(seated),
+          "the assignments and the seated pods differ")
+    check(len(set(seated) | set(res.infeasible)) == n_expected,
+          "a pod is neither seated nor typed infeasible")
+
+
+def chain_snapshot(res):
+    return (sorted((n.name, n.instance_type, n.zone,
+                    tuple(sorted(p.name for p in n.pods)))
+                   for n in list(res.existing_nodes) + list(res.nodes)),
+            dict(res.assignments), dict(res.infeasible))
+
+
+def serving_delta_constrained():
+    """(d): the constrained chain on ``cuda`` and on ``cpu``."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        modes, res, walls, base_ms = constrained_chain(
+            dev, SERVING["ws_pods"], SERVING["spread_steps"])
+        check_seated(res, SERVING["ws_pods"])
+        runs[dev] = (modes, chain_snapshot(res), walls, base_ms,
+                     time.perf_counter() - t0)
+    (mg, sg, wg, bg, tg), (mc, sc, _wc, bc, tc) = runs["cuda"], runs["cpu"]
+    check(mg == mc, f"cuda and cpu chains took different modes: {mg} vs {mc}")
+    check(sg == sc, "cuda and cpu chains ended in different plans")
+    check("scan" in mg, f"the constrained chain never took the scan tier: "
+          f"{mg}")
+    return dict(pods=SERVING["ws_pods"], steps=SERVING["spread_steps"],
+                modes={m: mg.count(m) for m in sorted(set(mg))},
+                step_ms=wg, p50_ms=percentile(wg, 0.5),
+                max_ms=max(wg), base_solve_ms=bg, cpu_base_solve_ms=bc,
+                cuda_s=tg, cpu_s=tc, equal_on_cpu=True,
+                nodes=len(sg[0]))
+
+
+def phase_serving(limit, slice_res):
+    """Phase 10: (a) megabatch flushes at the reference bench's width, (b)
+    the slice's hierarchical request in a flush, (c) the bench's
+    unconstrained delta chain, (d) a constrained delta chain on ``cuda``
+    and ``cpu``."""
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+
+    t_phase = time.perf_counter()
+    small = generate_catalog(full=False)
+    sched, solo, mega = serving_megabatch(small)
+    emit("serving_megabatch", **mega)
+    launches, hier = serving_hier_flush(
+        sched, solo, small, generate_catalog(full=True), limit, slice_res)
+    emit("serving_hier_flush", **hier)
+    del sched, solo
+    emit("serving_delta", **serving_delta_unconstrained(small))
+    emit("serving_delta_constrained", **serving_delta_constrained())
+    check(not FAULTS.records, f"the port fell back: {FAULTS.records}")
+    emit("serving", phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1358,6 +1852,7 @@ def main() -> int:
         phase_relax()
         phase_consolidation()
         phase_controllers(limit, slice_res, deployments(40, 2500))
+        flush_launches = phase_serving(limit, slice_res)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1367,7 +1862,7 @@ def main() -> int:
         "route": "cuda",
         "source": kernel.repo_path,
         "replaces": replaces,
-        "launches": launches[name],
+        "launches": launches[name] + flush_launches[name],
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],

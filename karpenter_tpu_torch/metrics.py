@@ -127,6 +127,19 @@ HIER_PRICE_ITERATIONS = "karpenter_solver_hier_price_iterations"
 HIER_REPAIR_PODS = "karpenter_solver_hier_repair_pods"
 HIER_DURATION = "karpenter_solver_hier_duration_seconds"
 
+# serving entry points: warms, megabatch flushes (reference metrics.py:154-170)
+SOLVER_COMPILE_IN_PROGRESS = "karpenter_solver_compile_in_progress"
+SOLVER_COMPILE_DURATION = "karpenter_solver_compile_duration_seconds"
+SOLVER_COLD_FALLBACKS = "karpenter_solver_cold_start_fallbacks_total"
+MEGABATCH_SLOTS = "karpenter_solver_megabatch_slots"
+MEGABATCH_FLUSH = "karpenter_solver_megabatch_flush_total"
+#: the full flush-reason label population (zero-init source): coalescer
+#: boundaries (full/deadline/bucket) plus 'mesh_serial', a meshed
+#: scheduler's serial flush — kept so dashboards read the reference's
+#: series; the port has no mesh and never counts it
+MEGABATCH_FLUSH_REASONS = ("full", "deadline", "bucket", "mesh_serial")
+PRECOMPILE_DURATION = "karpenter_solver_precompile_duration_seconds"
+
 # controllers, cloud provider and tracing (reference metrics.py:142-186)
 CLOUDPROVIDER_DURATION = "karpenter_cloudprovider_duration_seconds"
 NODES_CREATED = "karpenter_nodes_created_total"
@@ -150,8 +163,44 @@ TRACE_REMOTE_SPANS = "karpenter_trace_remote_spans_total"
 TRACE_REMOTE_OUTCOMES = ("adopted", "local")
 
 #: metric inventory of the names above: name -> (type, labels, help), the
-#: reference's help text
+#: reference's help text (the warm series say what the port measures: a
+#: warm is the first run of a signature on a background thread, since
+#: eager PyTorch compiles nothing)
 INVENTORY = {
+    SOLVER_COMPILE_IN_PROGRESS: (
+        "gauge", (),
+        "Background warms currently in flight (warm_startup, "
+        "precompile_buckets, warm_async): each runs one solve of a shape "
+        "signature on a background thread; the port compiles nothing, so "
+        "callers are never waiting on one."),
+    SOLVER_COMPILE_DURATION: (
+        "histogram", (),
+        "Wall time of one background warm (the signature's first run: "
+        "host build, uploads, the group loop, extraction), seconds."),
+    SOLVER_COLD_FALLBACKS: (
+        "counter", ("backend",),
+        "Solves served by a host tier because the device program for their "
+        "shape was not ready.  The port serves every signature on the "
+        "device the first time it is seen, so this stays 0."),
+    MEGABATCH_SLOTS: (
+        "histogram", (),
+        "Occupied request slots per megabatch device dispatch (the "
+        "cross-request batching path: one batched group loop solves every "
+        "slot, one read-back); sum/count is the mean batch occupancy."),
+    MEGABATCH_FLUSH: (
+        "counter", ("reason",),
+        "Coalescer batch flushes by reason: 'full' (max-slots reached), "
+        "'deadline' (max-wait expired, or the inbound queue went idle with "
+        "no wait configured), 'bucket' (an arriving request's shape bucket "
+        "differed from the held batch's, or the request cannot ride a "
+        "megabatch at all), 'mesh_serial' (a meshed scheduler's serial "
+        "flush; the port has no mesh)."),
+    PRECOMPILE_DURATION: (
+        "histogram", (),
+        "Wall time of one blocking bucket-grid warm pass "
+        "(precompile_buckets(wait=True)): one solve per single-solve shape "
+        "and per megabatch slot rung, which also primes the caching "
+        "allocator, seconds."),
     CLOUDPROVIDER_DURATION: (
         "histogram", ("controller", "method"),
         "Duration of each CloudProvider method call (metrics decorator)."),

@@ -1,20 +1,31 @@
 """Batch scheduler facade — routes pods to the device solve, the hierarchical
 solve or the CPU oracle.
 
-The port of the reference package's ``solver/scheduler.py``, reduced to the
-synchronous provisioning solve: ``BatchScheduler.solve`` runs the first
-wave, the preference-relaxation ladder, the OR-term waves, the residue
-waves, the capped-node reseat epilogue and the convex-relaxation rung
-(solver/relax.py).  ``_solve_once`` routes a wave
-to the oracle (``auto`` batches of at most ``NATIVE_BATCH_LIMIT`` pods, or
-any batch with a hard capacity-type spread), to the hierarchical solve
-(greenfield batches at/above ``KT_HIER_THRESHOLD``), or to the flat device
-solve.  Pods the device solve can't express are carved out and solved by
-the oracle against the device result's node set.
+The port of the reference package's ``solver/scheduler.py``.
+``BatchScheduler.solve`` runs the first wave, the preference-relaxation
+ladder, the OR-term waves, the residue waves, the capped-node reseat
+epilogue and the convex-relaxation rung (solver/relax.py).  ``_solve_once``
+routes a wave to the oracle (``auto`` batches of at most
+``NATIVE_BATCH_LIMIT`` pods, or any batch with a hard capacity-type
+spread), to the hierarchical solve (greenfield batches at/above
+``KT_HIER_THRESHOLD``), or to the flat device solve.  Pods the device solve
+can't express are carved out and solved by the oracle against the device
+result's node set.
+
+Serving entry points, under the reference's names: ``submit`` (async
+dispatch: the first wave is enqueued and ``result()`` reads it back and
+runs the epilogues), ``submit_many`` (the megabatch collector: first device
+waves of many requests coalesce into one batched dispatch per bucket,
+``bucket_key`` / ``unify_buckets`` for a coalescer), ``solve_delta`` (the
+warm-start chain) and the warm API (``warm_startup``,
+``precompile_buckets``, ``stop_warms``).  Eager PyTorch compiles nothing,
+so the reference's compile-behind workarounds are gone: every signature is
+served on the device the first time it is seen, ``served_cold`` stays
+False, and a flush that meets a new slot rung is dispatched batched.
 
 Not in this port yet: the gang epilogue (a batch with gang pods raises
-``NotImplementedError``), the megabatch collector, compile-behind and the
-native C++ tier, the device hang guard, and the mesh.
+``NotImplementedError``), the native C++ tier, the device hang guard (the
+collector dispatches and reads directly), and the mesh.
 """
 
 from __future__ import annotations
@@ -22,14 +33,22 @@ from __future__ import annotations
 import copy
 import logging
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..device import resolve_device
 from ..gang import gang_enabled, has_gangs
 from ..metrics import (
+    MEGABATCH_FLUSH,
+    MEGABATCH_FLUSH_REASONS,
+    MEGABATCH_SLOTS,
+    PRECOMPILE_DURATION,
     SCHEDULING_DURATION,
     SOLVER_BACKEND_DURATION,
+    SOLVER_COLD_FALLBACKS,
+    SOLVER_COMPILE_DURATION,
+    SOLVER_COMPILE_IN_PROGRESS,
     TENSORIZE_CACHE_HITS,
     TENSORIZE_CACHE_MISSES,
     TENSORIZE_DURATION,
@@ -38,7 +57,7 @@ from ..metrics import (
 )
 from ..models import labels as L
 from ..models.instancetype import InstanceType
-from ..models.pod import PodSpec
+from ..models.pod import LabelSelector, PodSpec
 from ..models.provisioner import Provisioner
 from ..models.tensorize import (
     TensorizeCache,
@@ -48,7 +67,12 @@ from ..models.tensorize import (
 )
 from ..obs.trace import NULL_TRACE
 from .reference import solve as oracle_solve
-from .tpu import TpuSolver
+from .tpu import (
+    MEGA_MAX_SLOTS,
+    TpuSolver,
+    mega_key_dims,
+    unify_mega_keys,
+)
 from .types import SimNode, SolveResult
 
 logger = logging.getLogger(__name__)
@@ -60,6 +84,12 @@ MAX_RELAXATION_WAVES = 8
 #: residue-convergence depth: still-infeasible pods re-solve against the
 #: accumulated placed state until nothing more places (or this many waves)
 MAX_RESIDUE_WAVES = 6
+
+
+def _compile_behind_enabled() -> bool:
+    """``KT_COMPILE_BEHIND=0`` turns the background warms off (the
+    reference's knob; the port has no cold tier for it to gate)."""
+    return os.environ.get("KT_COMPILE_BEHIND", "1") != "0"
 
 
 def _soft_spreads(pod: PodSpec):
@@ -136,9 +166,190 @@ def _merge(result: SolveResult, sub: SolveResult) -> None:
     result.tensorize_ms += sub.tensorize_ms
     result.served_cold = result.served_cold or sub.served_cold
 
+
+class _PendingWave:
+    """A dispatched-but-unread first solver wave; ``finish()`` reads the
+    device back and returns the wave's SolveResult.  Internal to the
+    scheduler's submit/solve split."""
+
+    __slots__ = ("finish",)
+
+    def __init__(self, finish) -> None:
+        self.finish = finish
+
+
+class PendingScheduleResult:
+    """Handle returned by :meth:`BatchScheduler.submit`; ``result()`` blocks
+    on the device read-back plus any retry epilogues and is idempotent
+    (the first caller runs them, from whichever thread)."""
+
+    __slots__ = ("_finish", "_result", "_lock")
+
+    def __init__(self, finish) -> None:
+        self._finish = finish
+        self._result: Optional[SolveResult] = None
+        self._lock = threading.Lock()
+
+    def result(self) -> SolveResult:
+        with self._lock:
+            if self._result is None:
+                self._result = self._finish()
+            return self._result
+
+
 def _budget_left(result: SolveResult, max_new_nodes: Optional[int]) -> Optional[int]:
     return (None if max_new_nodes is None
             else max(0, max_new_nodes - len(result.nodes)))
+
+
+class _MegaSlot:
+    """One request's slot in a pending megabatch dispatch: ``result()`` is
+    valid after the owning collector's ``dispatch()`` ran; the first
+    resolver reads the whole group back, and the slot's own exception
+    (SlotsExhausted) is re-raised so the per-request ladder in
+    ``_solve_tpu`` stays the single path's."""
+
+    __slots__ = ("_collector", "_idx")
+
+    def __init__(self, collector: "_MegaCollector", idx: int) -> None:
+        self._collector = collector
+        self._idx = idx
+
+    def result(self):
+        return self._collector.resolve(self._idx)
+
+
+class _MegaCollector:
+    """Deferred cross-request device dispatch (``BatchScheduler.submit_many``).
+
+    During the registration phase ``_solve_tpu`` routes each request's first
+    device wave here instead of dispatching it; ``dispatch()`` then enqueues
+    ONE batched group loop per bucket (``solve_many_async``).  Nothing is
+    read back at dispatch: the first ``resolve()`` of a group pays its one
+    batch-wide read.  A flush that meets a new slot rung is dispatched
+    batched (eager PyTorch has nothing to compile).  The reference wraps
+    each dispatch and read in its device hang guard, which is not ported:
+    they run directly."""
+
+    def __init__(self, solver: TpuSolver, registry=None,
+                 flush_reason: Optional[str] = None) -> None:
+        self.solver = solver
+        self.registry = registry
+        #: the coalescer's reason for this flush, or None for direct
+        #: submit_many callers; when set, the collector owns the flush count
+        #: and incs exactly one reason at dispatch
+        self.flush_reason = flush_reason
+        self.entries: List[dict] = []
+        #: per-slot resolver state after dispatch():
+        #: ("mega", PendingMegaSolve, pos) | ("single", PendingTpuSolve)
+        #: | ("err", Exception)
+        self._slots: List[tuple] = []
+
+    def add(self, **entry) -> _MegaSlot:
+        self.entries.append(entry)
+        return _MegaSlot(self, len(self.entries) - 1)
+
+    def _observe_slots(self, occupied: int) -> None:
+        if self.registry is not None:
+            self.registry.histogram(MEGABATCH_SLOTS).observe(occupied)
+
+    def dispatch(self) -> None:
+        self._slots = [None] * len(self.entries)
+        sigs: List[tuple] = []
+        groups: Dict[tuple, List[int]] = {}
+        for i, e in enumerate(self.entries):
+            key = self.solver.mega_signature(
+                e["st"], existing_nodes=e["existing_nodes"],
+                max_nodes=e["max_nodes"], slots=1,
+            )
+            sigs.append(key)
+            groups.setdefault(key, []).append(i)
+        # mixed-bucket unification: merge shape buckets whose dims unify
+        # (one dominates component-wise — tpu.unify_mega_keys) so the flush
+        # shares one dispatch at the dominant bucket's dims; dominated
+        # requests pad up via target_dims
+        merged: List[list] = []  # [unified_key, idxs, n_source_buckets]
+        for key, idxs in groups.items():
+            for m in merged:
+                u = unify_mega_keys(m[0], key)
+                if u is not None:
+                    m[0] = u
+                    m[1].extend(idxs)
+                    m[2] += 1
+                    break
+            else:
+                merged.append([key, list(idxs), 1])
+        for ukey, idxs, n_src in merged:
+            idxs.sort()  # slot order == arrival order
+            if len(idxs) == 1:
+                self._dispatch_serial(idxs)
+                continue
+            reqs = [
+                dict(
+                    st=self.entries[i]["st"],
+                    existing_nodes=self.entries[i]["existing_nodes"],
+                    max_nodes=self.entries[i]["max_nodes"],
+                    raise_on_exhaust=self.entries[i]["raise_on_exhaust"],
+                    trace=self.entries[i]["trace"],
+                )
+                for i in idxs
+            ]
+            target = mega_key_dims(ukey) if n_src > 1 else None
+            try:
+                handle = self.solver.solve_many_async(reqs,
+                                                      target_dims=target)
+            # megabatch CONSTRUCTION failures (a bucket mismatch, stacking
+            # errors) degrade the flush to the proven serial path — clients
+            # must never fail on an optimization-layer error
+            except Exception:  # noqa: BLE001
+                logger.warning(
+                    "megabatch dispatch failed; serving the flush "
+                    "serially", exc_info=True)
+                self._dispatch_serial(idxs)
+                continue
+            self._observe_slots(len(idxs))
+            for pos, i in enumerate(idxs):
+                self._slots[i] = ("mega", handle, pos)
+        if self.flush_reason is not None and self.registry is not None:
+            self.registry.counter(MEGABATCH_FLUSH).inc(
+                {"reason": self.flush_reason})
+
+    def _dispatch_serial(self, idxs: List[int]) -> None:
+        """Per-request async dispatches: still one enqueue per request
+        before any read (a lone request, or a degraded flush)."""
+        for i in idxs:
+            e = self.entries[i]
+            self._observe_slots(1)
+            try:
+                pending = self.solver.solve_async(
+                    e["st"], existing_nodes=e["existing_nodes"],
+                    max_nodes=e["max_nodes"],
+                    raise_on_exhaust=e["raise_on_exhaust"],
+                    trace=e["trace"],
+                )
+            # boxed per-slot outcome, re-raised by the request's own
+            # _MegaSlot.result()
+            except BaseException as err:  # noqa: BLE001
+                self._slots[i] = ("err", err)
+                continue
+            self._slots[i] = ("single", pending)
+
+    def resolve(self, idx: int):
+        """Read back and extract slot ``idx`` (the first resolver of a mega
+        group reads the whole group; later ones hit the cached outputs)."""
+        state = self._slots[idx]
+        if state is None:
+            raise RuntimeError("megabatch slot read before dispatch()")
+        if state[0] == "err":
+            raise state[1]
+        if state[0] == "single":
+            return state[1].result()
+        _kind, handle, pos = state
+        outs = handle.results()
+        out = outs[pos]
+        if isinstance(out, BaseException):
+            raise out
+        return out
 
 
 class BatchScheduler:
@@ -148,19 +359,39 @@ class BatchScheduler:
     ``device=None`` is the CUDA card and raises without one; only an
     explicit ``device="cpu"`` runs the device path on the host."""
 
+    #: startup-warm shape profiles: (groups, total_pods, with_zone_spread) —
+    #: a provisioning wave of mixed pods, with and without topology spread
+    #: (the selector-axis S rung differs between the two)
+    WARM_PROFILES = ((16, 400, False), (16, 400, True))
+
+    #: megabatch slot rungs ``precompile_buckets`` warms by default
+    WARM_MEGA_SLOTS = (2, 4, 8)
+
+    #: capability probe for a coalescer: this scheduler's submit_many
+    #: accepts flush_reason= and owns the MEGABATCH_FLUSH count for it
+    counts_flush_reason = True
+
     def __init__(
         self,
         backend: str = "auto",
         registry: Optional[Registry] = None,
         native_batch_limit: int = NATIVE_BATCH_LIMIT,
         device=None,
+        mesh=None,
+        compile_behind: Optional[bool] = None,  # None: KT_COMPILE_BEHIND env
     ) -> None:
         if backend not in ("auto", "tpu", "oracle"):
             raise ValueError(f"unknown backend {backend!r}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "the device mesh is not ported to karpenter_tpu_torch yet")
         self.backend = backend
         self.registry = registry or default_registry
         self.native_batch_limit = native_batch_limit
         self.device = resolve_device(device)
+        self.compile_behind = (
+            _compile_behind_enabled() if compile_behind is None
+            else compile_behind)
         self._tpu = TpuSolver(device=self.device)
         # incremental host tensorize: group-level tensors built once per
         # batch shape, reused across solves (KT_TENSORIZE_CACHE=0 forces
@@ -173,6 +404,20 @@ class BatchScheduler:
             self.registry.counter(TENSORIZE_CACHE_HITS).inc(
                 {"tier": tier}, value=0.0)
         self.registry.counter(TENSORIZE_CACHE_MISSES).inc(value=0.0)
+        # the reference's cold-start series exist at 0: the port serves
+        # every signature on the device, so they stay there
+        for fallback_backend in ("native", "oracle"):
+            self.registry.counter(SOLVER_COLD_FALLBACKS).inc(
+                {"backend": fallback_backend}, value=0.0)
+        # megabatch collector: non-None only INSIDE submit_many's
+        # registration phase — _solve_tpu routes first device waves through
+        # it instead of dispatching
+        self._mega_collect: Optional[_MegaCollector] = None
+        self.registry.histogram(MEGABATCH_SLOTS)
+        self.registry.histogram(PRECOMPILE_DURATION)
+        for reason in MEGABATCH_FLUSH_REASONS:
+            self.registry.counter(MEGABATCH_FLUSH).inc(
+                {"reason": reason}, value=0.0)
         from .hierarchy import zero_init_hier_metrics
         from .relax import zero_init_metrics as relax_zero_init
         from .warmstart import zero_init_metrics
@@ -213,93 +458,454 @@ class BatchScheduler:
         ``relax=False`` skips it, ``None`` defers to ``KT_RELAX`` (default
         on).  A batch with gang pods raises ``NotImplementedError`` (the
         all-or-nothing epilogue is not ported yet)."""
+        return self._submit(
+            pods, provisioners, instance_types,
+            existing_nodes=existing_nodes, daemonsets=daemonsets,
+            unavailable=unavailable, allow_new_nodes=allow_new_nodes,
+            max_new_nodes=max_new_nodes, trace=trace, relax=relax,
+            # a synchronous caller reads back at once: keep solve() on the
+            # synchronous device path
+            dispatch=False,
+        ).result()
+
+    def submit(
+        self,
+        pods: Sequence[PodSpec],
+        provisioners: Sequence[Provisioner],
+        instance_types: Sequence[InstanceType],
+        *,
+        existing_nodes: Sequence[SimNode] = (),
+        daemonsets: Sequence[PodSpec] = (),
+        unavailable: Optional[Set[tuple]] = None,
+        allow_new_nodes: bool = True,
+        max_new_nodes: Optional[int] = None,
+        trace=None,
+        relax: Optional[bool] = None,
+    ) -> PendingScheduleResult:
+        """Async entry point for pipelined callers: tensorizes and ENQUEUES
+        the first solver wave on the device, then returns a handle whose
+        ``result()`` reads it back and runs the (usually zero-iteration)
+        relaxation/residue epilogues.  Same result semantics as
+        :meth:`solve`.  Not re-entrant: submits and results come from one
+        thread, results in submit order."""
+        return self._submit(
+            pods, provisioners, instance_types,
+            existing_nodes=existing_nodes, daemonsets=daemonsets,
+            unavailable=unavailable, allow_new_nodes=allow_new_nodes,
+            max_new_nodes=max_new_nodes, trace=trace, relax=relax,
+            dispatch=True,
+        )
+
+    def solve_delta(
+        self,
+        prev: SolveResult,
+        added: Sequence[PodSpec] = (),
+        removed: Sequence[str] = (),
+        iced: Sequence[object] = (),
+        *,
+        provisioners: Sequence[Provisioner],
+        instance_types: Sequence[InstanceType],
+        daemonsets: Sequence[PodSpec] = (),
+        unavailable: Optional[Set[tuple]] = None,
+        max_delta_frac: Optional[float] = None,
+        force_full: bool = False,
+        trace=None,
+    ):
+        """Warm-start delta solve through the full scheduler ladder (see
+        solver/warmstart.py): removals and unconstrained adds are host
+        bookkeeping; displaced pods that need a real solve go through
+        :meth:`solve` seeded with the surviving placements — preference
+        relaxation, oracle carve-outs, residue waves and the auto-policy
+        routing all apply to the subproblem as they would to a fresh
+        batch.  Falls back to a full :meth:`solve` of the whole pod set
+        when the perturbation exceeds ``KT_DELTA_MAX_FRAC`` or a coupling
+        guard trips.  Gang pods in ``added`` raise ``NotImplementedError``
+        (the gang epilogue is not ported yet).  Consumes ``prev``; returns
+        a ``DeltaOutcome``."""
+        from . import warmstart
+        from .relax import relax_delta_enabled
+
+        if gang_enabled() and has_gangs(added):
+            raise NotImplementedError(
+                "gang scheduling is not ported to karpenter_tpu_torch yet")
+
+        # the relax rung is a $-for-latency trade the delta path must not
+        # pay: displaced-subproblem scans always skip it, and the FULL-solve
+        # fallbacks run it only when KT_RELAX_DELTA=1
+        def _solve(pods, existing, unavail, relax=False):
+            return self.solve(
+                pods, provisioners, instance_types,
+                existing_nodes=existing, daemonsets=daemonsets,
+                unavailable=unavail or None, trace=trace, relax=relax,
+            )
+
+        def _solve_full(pods, existing, unavail):
+            return self.solve(
+                pods, provisioners, instance_types,
+                existing_nodes=existing, daemonsets=daemonsets,
+                unavailable=unavail or None, trace=trace,
+                relax=None if relax_delta_enabled() else False,
+            )
+
+        return warmstart.delta_solve(
+            prev, added, removed, iced,
+            solve_displaced=_solve, solve_full=_solve_full,
+            max_delta_frac=max_delta_frac, registry=self.registry,
+            unavailable=unavailable, force_full=force_full,
+        )
+
+    def submit_many(
+        self, requests: Sequence[dict],
+        flush_reason: Optional[str] = None,
+    ) -> List[PendingScheduleResult]:
+        """Cross-request megabatch entry (a coalescer's flush): each request
+        is a kwargs dict (``pods``, ``provisioners``, ``instance_types``
+        plus the :meth:`solve` keywords).  The registration phase runs each
+        request's tensorize + routing exactly like :meth:`submit`, but
+        first device waves land in a :class:`_MegaCollector` instead of
+        dispatching; one batched device dispatch per bucket then solves
+        every slot with one read-back.  Returns per-request handles IN
+        ORDER — ``result()`` runs that request's own epilogues against its
+        own result only.  Same single-thread contract as :meth:`submit`.
+        ``flush_reason`` transfers the MEGABATCH_FLUSH count here."""
+        collector = _MegaCollector(
+            self._tpu, registry=self.registry, flush_reason=flush_reason)
+        self._mega_collect = collector
+        try:
+            pendings = [
+                self._submit(
+                    req["pods"], req["provisioners"], req["instance_types"],
+                    **{k: v for k, v in req.items()
+                       if k not in ("pods", "provisioners", "instance_types",
+                                    "relax")},
+                    # megabatch slots skip the relax rung: the coalesced
+                    # flush is the latency path
+                    relax=bool(req.get("relax", False)),
+                    dispatch=True,
+                )
+                for req in requests
+            ]
+        finally:
+            self._mega_collect = None
+        collector.dispatch()
+        return pendings
+
+    def unify_buckets(self, held_key: tuple,
+                      new_key: tuple) -> Optional[tuple]:
+        """Mixed-bucket unification hook for a coalescer: the DOMINANT of two
+        megabatch bucket keys when one subsumes the other
+        (tpu.unify_mega_keys), else None."""
+        return unify_mega_keys(held_key, new_key)
+
+    def bucket_key(self, kwargs: dict) -> Optional[tuple]:
+        """Megabatch shape bucket of one queued solve request, or None when
+        it cannot ride a megabatch (non-device backend, oracle routing,
+        device carve-outs, cache disabled).  Every signature is served on
+        the device the first time it is seen, so a new shape buckets like a
+        seen one.  Single-thread, like submit: the tensorize it performs
+        lands in the cache, so the real solve's tensorize is a hit."""
+        if self.backend not in ("auto", "tpu"):
+            return None
+        if self._tensorize_cache is None:
+            return None  # without cached tensorize the probe would pay a
+            # full host build per queued request
+        pods = list(kwargs.get("pods") or ())
+        if not pods or not kwargs.get("allow_new_nodes", True):
+            return None
+        if self._route_small(len(pods)):
+            return None
+        try:
+            hardened = [_harden_preferences(p) for p in pods]
+            if batch_needs_oracle(hardened):
+                return None
+            if any(device_inexpressible(p) for p in hardened):
+                return None  # oracle carve-outs couple waves; keep serial
+            st, _tier = self._tensorize_cache.tensorize(
+                hardened, kwargs["provisioners"], kwargs["instance_types"],
+                daemonsets=kwargs.get("daemonsets") or (),
+                unavailable=kwargs.get("unavailable"),
+            )
+            existing = list(kwargs.get("existing_nodes") or ())
+            max_new = kwargs.get("max_new_nodes")
+            new_budget = len(hardened) if max_new is None else max_new
+            max_slots = len(existing) + new_budget
+            return self._tpu.mega_signature(
+                st, existing_nodes=existing, max_nodes=max_slots, slots=1)
+        # the bucket probe must never fail a request — an unbucketable
+        # request just solves on the single path, where a real error
+        # surfaces with full context
+        except Exception:
+            logger.debug("bucket_key probe failed; request rides the single "
+                         "path", exc_info=True)
+            return None
+
+    def _submit(
+        self,
+        pods: Sequence[PodSpec],
+        provisioners: Sequence[Provisioner],
+        instance_types: Sequence[InstanceType],
+        *,
+        existing_nodes: Sequence[SimNode] = (),
+        daemonsets: Sequence[PodSpec] = (),
+        unavailable: Optional[Set[tuple]] = None,
+        allow_new_nodes: bool = True,
+        max_new_nodes: Optional[int] = None,
+        trace=None,
+        relax: Optional[bool] = None,
+        dispatch: bool = False,
+    ) -> PendingScheduleResult:
         if gang_enabled() and has_gangs(pods):
             raise NotImplementedError(
                 "gang scheduling is not ported to karpenter_tpu_torch yet")
         t0 = time.perf_counter()
         trace = trace or NULL_TRACE
         trace.annotate(backend=self.backend, n_pods=len(pods))
+        hardened = [_harden_preferences(p) for p in pods]
         try:
-            hardened = [_harden_preferences(p) for p in pods]
-            with trace.span("dispatch"):
+            # the dispatch span covers tensorize + uploads + enqueue on the
+            # async path; on the sync/oracle path the whole first wave
+            with trace.span("dispatch", async_dispatch=dispatch):
                 first = self._solve_once(
                     hardened, provisioners, instance_types,
                     list(existing_nodes), daemonsets, unavailable,
-                    allow_new_nodes, max_new_nodes, trace=trace,
+                    allow_new_nodes, max_new_nodes,
+                    dispatch=dispatch, trace=trace,
                 )
-            result = self._solve_wave(
-                pods, provisioners, instance_types, list(existing_nodes),
-                daemonsets, unavailable, allow_new_nodes, max_new_nodes,
-                first=first, trace=trace,
-            )
-            with trace.span("reseat") as reseat_span:
-                waves = 0
-                # OR'd required-affinity terms beyond the first: the
-                # solvers pack under term[0] only, so still-infeasible pods
-                # retry under each alternate term in order
-                max_terms = max(
-                    (len(p.required_affinity_terms) for p in pods), default=0)
-                for k in range(1, max_terms):
-                    alts = []
-                    for p in pods:
-                        if p.name in result.infeasible and len(p.required_affinity_terms) > k:
-                            q = copy.copy(p)
-                            q.required_affinity_terms = [p.required_affinity_terms[k]]
-                            q.__dict__.pop("_group_key", None)
-                            alts.append(q)
-                    if not alts:
-                        break
-                    waves += 1
-                    _merge(result, self._solve_wave(
-                        alts, provisioners, instance_types,
-                        list(result.existing_nodes) + result.nodes, daemonsets,
-                        unavailable, allow_new_nodes,
-                        _budget_left(result, max_new_nodes), trace=trace,
-                    ))
-
-                # residue convergence: re-offer the still-infeasible pods
-                # the state every prior wave produced, until a wave places
-                # nothing new
-                for _ in range(MAX_RESIDUE_WAVES):
-                    retry = [p for p in pods if p.name in result.infeasible]
-                    if not retry:
-                        break
-                    sub = self._solve_wave(
-                        retry, provisioners, instance_types,
-                        list(result.existing_nodes) + result.nodes, daemonsets,
-                        unavailable, allow_new_nodes,
-                        _budget_left(result, max_new_nodes), trace=trace,
-                    )
-                    if not sub.assignments:
-                        break  # no progress: the residue is genuinely infeasible
-                    waves += 1
-                    _merge(result, sub)
-                # ct-spread batches are already fully oracle-interleaved;
-                # the reseat epilogue buys nothing there
-                if not batch_needs_oracle(hardened):
-                    self._reseat_capped(
-                        result, provisioners, instance_types, daemonsets,
-                        unavailable, n_pods=len(pods),
-                        max_new_nodes=max_new_nodes,
-                    )
-                reseat_span.annotate(repair_waves=waves)
-            # convex-relaxation refinement rung (solver/relax.py): re-pack
-            # the large unconstrained groups globally and ship
-            # min(scan, relax+round) — never worse by construction
-            result = self._maybe_relax(
-                result, hardened, provisioners, instance_types, daemonsets,
-                unavailable, allow_new_nodes, max_new_nodes, relax, trace,
-            )
-            trace.annotate(
-                n_nodes=len(result.nodes),
-                n_infeasible=len(result.infeasible),
-                cost=round(result.new_node_cost, 4),
-                solve_ms=round(result.solve_ms, 3),
-            )
-            return result
-        finally:
+        except BaseException:
+            # a synchronous failure before the finish closure exists must
+            # still land in the histogram
             self.registry.histogram(SCHEDULING_DURATION).observe(
                 time.perf_counter() - t0)
+            raise
+
+        def _finish() -> SolveResult:
+            try:
+                if isinstance(first, _PendingWave):
+                    # the read-back of the async first wave
+                    with trace.span("fence"):
+                        res0 = first.finish()
+                else:
+                    res0 = first
+                result = self._solve_wave(
+                    pods, provisioners, instance_types, list(existing_nodes),
+                    daemonsets, unavailable, allow_new_nodes, max_new_nodes,
+                    first=res0, trace=trace,
+                )
+                with trace.span("reseat") as reseat_span:
+                    waves = 0
+                    # OR'd required-affinity terms beyond the first: the
+                    # solvers pack under term[0] only, so still-infeasible
+                    # pods retry under each alternate term in order
+                    max_terms = max(
+                        (len(p.required_affinity_terms) for p in pods),
+                        default=0)
+                    for k in range(1, max_terms):
+                        alts = []
+                        for p in pods:
+                            if p.name in result.infeasible and len(p.required_affinity_terms) > k:
+                                q = copy.copy(p)
+                                q.required_affinity_terms = [p.required_affinity_terms[k]]
+                                q.__dict__.pop("_group_key", None)
+                                alts.append(q)
+                        if not alts:
+                            break
+                        waves += 1
+                        _merge(result, self._solve_wave(
+                            alts, provisioners, instance_types,
+                            list(result.existing_nodes) + result.nodes,
+                            daemonsets, unavailable, allow_new_nodes,
+                            _budget_left(result, max_new_nodes), trace=trace,
+                        ))
+
+                    # residue convergence: re-offer the still-infeasible
+                    # pods the state every prior wave produced, until a
+                    # wave places nothing new
+                    for _ in range(MAX_RESIDUE_WAVES):
+                        retry = [p for p in pods if p.name in result.infeasible]
+                        if not retry:
+                            break
+                        sub = self._solve_wave(
+                            retry, provisioners, instance_types,
+                            list(result.existing_nodes) + result.nodes,
+                            daemonsets, unavailable, allow_new_nodes,
+                            _budget_left(result, max_new_nodes), trace=trace,
+                        )
+                        if not sub.assignments:
+                            break  # no progress: the residue is genuinely infeasible
+                        waves += 1
+                        _merge(result, sub)
+                    # ct-spread batches are already fully oracle-
+                    # interleaved; the reseat epilogue buys nothing there
+                    if not batch_needs_oracle(hardened):
+                        self._reseat_capped(
+                            result, provisioners, instance_types, daemonsets,
+                            unavailable, n_pods=len(pods),
+                            max_new_nodes=max_new_nodes,
+                        )
+                    reseat_span.annotate(repair_waves=waves)
+                # convex-relaxation refinement rung (solver/relax.py):
+                # re-pack the large unconstrained groups globally and ship
+                # min(scan, relax+round) — never worse by construction
+                result = self._maybe_relax(
+                    result, hardened, provisioners, instance_types,
+                    daemonsets, unavailable, allow_new_nodes, max_new_nodes,
+                    relax, trace,
+                )
+                trace.annotate(
+                    served_cold=result.served_cold,
+                    n_nodes=len(result.nodes),
+                    n_infeasible=len(result.infeasible),
+                    cost=round(result.new_node_cost, 4),
+                    solve_ms=round(result.solve_ms, 3),
+                )
+                return result
+            finally:
+                self.registry.histogram(SCHEDULING_DURATION).observe(
+                    time.perf_counter() - t0)
+
+        return PendingScheduleResult(_finish)
+
+    # ---- the warm API -----------------------------------------------------
+    def _profile_tensors(self, provisioners, instance_types, daemonsets,
+                         profiles=None):
+        """Tensorized startup-warm batches, one per shape profile — the
+        single source :meth:`warm_startup` (single-solve shapes) and
+        :meth:`precompile_buckets` (megabatch rungs) both warm from."""
+        from ..models.pod import TopologySpreadConstraint
+
+        out = []
+        for groups, total, spread in (profiles or self.WARM_PROFILES):
+            pods = []
+            per = max(1, total // groups)
+            for gi in range(groups):
+                sel = LabelSelector.of({"warmup-group": f"g{gi}"})
+                constraints = (
+                    [TopologySpreadConstraint(1, L.ZONE, "DoNotSchedule", sel)]
+                    if spread else []
+                )
+                for i in range(per):
+                    pods.append(PodSpec(
+                        name=f"warmup-g{gi}-{i}",
+                        labels={"warmup-group": f"g{gi}"},
+                        requests={"cpu": 0.25 * (1 + gi % 8),
+                                  "memory": float(2 ** (30 + gi % 3))},
+                        topology_spread=list(constraints),
+                        owner_key=f"warmup-g{gi}",
+                    ))
+            out.append(tensorize(pods, provisioners, instance_types,
+                                 daemonsets=daemonsets))
+        return out
+
+    def warm_startup(
+        self,
+        provisioners,
+        instance_types,
+        daemonsets: Sequence[PodSpec] = (),
+        existing_nodes: Sequence[SimNode] = (),
+        profiles=None,
+    ) -> int:
+        """Run the startup shape ladder on background threads against the
+        live catalog, provisioners and CLUSTER SIZE: ``existing_nodes``
+        (snapshots) set the NE/NR rungs, so the shapes warmed are the ones
+        the provisioning and consolidation solves will hit.  Returns the
+        number of warms accepted; cheap to call again (signatures dedupe).
+        The relax rung's warm comes with the serving layer."""
+        if self.backend not in ("auto", "tpu") or not self.compile_behind:
+            return 0
+        started = 0
+        for st in self._profile_tensors(provisioners, instance_types,
+                                        daemonsets, profiles):
+            # provisioning shape: batch solved against the current cluster
+            if self._tpu.warm_async(st, existing_nodes=existing_nodes,
+                                    on_done=self._warm_done):
+                started += 1
+            if existing_nodes:
+                # consolidation what-if shape: a small repack against the
+                # cluster with at most one new node
+                if self._tpu.warm_async(
+                    st, existing_nodes=existing_nodes,
+                    max_nodes=len(existing_nodes) + 1,
+                    on_done=self._warm_done,
+                ):
+                    started += 1
+        if started:
+            self.registry.gauge(SOLVER_COMPILE_IN_PROGRESS).set(
+                self._tpu.compiles_in_flight())
+            logger.info("startup warmup: %d solver shape warms accepted in "
+                        "the background", started)
+        return started
+
+    def precompile_buckets(
+        self,
+        provisioners,
+        instance_types,
+        daemonsets: Sequence[PodSpec] = (),
+        existing_nodes: Sequence[SimNode] = (),
+        profiles=None,
+        mega_slots: Optional[Sequence[int]] = None,
+        wait: bool = False,
+        timeout: float = 1800.0,
+    ) -> int:
+        """The bucket grid ahead of traffic: the startup single-solve ladder
+        (:meth:`warm_startup`) PLUS one megabatch solve at each given slot
+        rung, so both the serial and the coalesced serving paths have run
+        (and primed the caching allocator) before the first request.
+        ``wait=True`` blocks until every accepted warm lands and observes
+        the total in ``karpenter_solver_precompile_duration_seconds``.
+        Returns the number of warms accepted."""
+        t0 = time.perf_counter()
+        started = self.warm_startup(
+            provisioners, instance_types, daemonsets=daemonsets,
+            existing_nodes=existing_nodes, profiles=profiles,
+        )
+        if self.backend in ("auto", "tpu") and self.compile_behind:
+            rungs = sorted({
+                s for s in (mega_slots or self.WARM_MEGA_SLOTS)
+                if 2 <= s <= MEGA_MAX_SLOTS
+            })
+            for st in self._profile_tensors(provisioners, instance_types,
+                                            daemonsets, profiles):
+                for s in rungs:
+                    if self._tpu.warm_async(
+                        st, existing_nodes=existing_nodes, slots=s,
+                        on_done=self._warm_done,
+                    ):
+                        started += 1
+        if wait and started:
+            deadline = time.perf_counter() + timeout
+            while (not self._tpu.warm_idle()
+                   and time.perf_counter() < deadline):
+                time.sleep(0.05)
+            self.registry.histogram(PRECOMPILE_DURATION).observe(
+                time.perf_counter() - t0)
+            if not self._tpu.warm_idle():
+                logger.warning("bucket precompile still running after %.0fs "
+                               "wait budget; remaining warms finish behind",
+                               timeout)
+            else:
+                logger.info("bucket precompile complete: %d warms in %.1fs",
+                            started, time.perf_counter() - t0)
+        return started
+
+    def stop_warms(self) -> None:
+        """Stop background warms (shutdown): queued warms are dropped; exit
+        waits only for the warms already running."""
+        self._tpu.stop_warms()
+
+    def _warm_done(self, sig, seconds: float, err) -> None:
+        # runs BEFORE the warm thread clears its own in-flight entry (so
+        # watchers polling compiles_in_flight() down to 0 never miss these
+        # metrics); exclude the finishing warm from the gauge
+        self.registry.gauge(SOLVER_COMPILE_IN_PROGRESS).set(
+            max(0, self._tpu.compiles_in_flight() - 1))
+        if err is not None:
+            # failed warms stay out of the duration histogram; TpuSolver
+            # arms a per-signature retry backoff
+            logger.warning("background solver warm failed after %.1fs: %r",
+                           seconds, err)
+        else:
+            self.registry.histogram(SOLVER_COMPILE_DURATION).observe(seconds)
+            logger.info("solver shape warmed in background (%.1fs)", seconds)
 
     def _reseat_capped(
         self, result: SolveResult, provisioners, instance_types, daemonsets,
@@ -660,8 +1266,13 @@ class BatchScheduler:
 
     def _solve_once(
         self, pods, provisioners, instance_types, existing_nodes, daemonsets,
-        unavailable, allow_new_nodes, max_new_nodes, trace=None,
-    ) -> SolveResult:
+        unavailable, allow_new_nodes, max_new_nodes, dispatch=False,
+        trace=None,
+    ):
+        """One wave, routed.  Returns a SolveResult — or, with ``dispatch``
+        on the plain flat device path, a :class:`_PendingWave` (the oracle,
+        hierarchical and carve-out-first routes return a finished
+        result)."""
         # a hard capacity-type spread couples the whole batch to the
         # sequential engine (batch_needs_oracle) — every backend
         if (self.backend == "oracle" or self._route_small(len(pods))
@@ -693,7 +1304,8 @@ class BatchScheduler:
             # None = one coupled component: flat is the right program
         return self._solve_tpu(
             pods, provisioners, instance_types, existing_nodes, daemonsets,
-            unavailable, allow_new_nodes, max_new_nodes, trace=trace,
+            unavailable, allow_new_nodes, max_new_nodes, dispatch=dispatch,
+            trace=trace,
         )
 
     def _route_small(self, n_pods: int) -> bool:
@@ -748,10 +1360,15 @@ class BatchScheduler:
 
     def _solve_tpu(
         self, pods, provisioners, instance_types, existing_nodes, daemonsets,
-        unavailable, allow_new_nodes, max_new_nodes, trace=None,
-    ) -> SolveResult:
+        unavailable, allow_new_nodes, max_new_nodes, dispatch=False,
+        trace=None,
+    ):
         """Device-tier wave with the oracle carve-out for pods the device
-        solve can't express."""
+        solve can't express.  Returns a SolveResult — or, when
+        ``dispatch`` is set and the batch has no oracle carve-outs, a
+        :class:`_PendingWave` whose ``finish`` reads the async dispatch
+        back (inside ``submit_many``'s registration, the wave joins the
+        megabatch collector instead of dispatching)."""
         trace = trace or NULL_TRACE
         tpu_pods = [p for p in pods if not device_inexpressible(p)]
         cpu_pods = [p for p in pods if device_inexpressible(p)]
@@ -795,19 +1412,51 @@ class BatchScheduler:
             if max_new_nodes is not None:
                 max_new_nodes = max(0, max_new_nodes - len(res0.nodes))
 
-        if tpu_pods:
-            st, tsec = self._tensorize(
-                tpu_pods, provisioners, instance_types, daemonsets,
-                unavailable, trace=trace)
-            tensorize_ms += tsec * 1000.0
-            t0 = time.perf_counter()
-            new_budget = len(tpu_pods) if max_new_nodes is None else max_new_nodes
-            all_existing = list(cur_existing) + nodes
-            max_slots = len(all_existing) + new_budget
-            res = self._tpu.solve(
-                st, existing_nodes=all_existing, max_nodes=max_slots,
-                trace=trace,
-            ).result
+        def _tail() -> SolveResult:
+            """cpu-carve-out epilogue + result assembly — shared by the
+            synchronous return and the async wave's finish."""
+            nonlocal solve_ms
+            if cpu_pods:
+                t0c = time.perf_counter()
+                res2 = oracle_solve(
+                    cpu_pods, provisioners, instance_types,
+                    existing_nodes=list(cur_existing) + nodes,
+                    daemonsets=daemonsets, unavailable=unavailable,
+                    allow_new_nodes=allow_new_nodes,
+                    max_new_nodes=None if max_new_nodes is None else max(0, max_new_nodes - len(nodes)),
+                )
+                self.registry.histogram(SOLVER_BACKEND_DURATION).observe(
+                    time.perf_counter() - t0c, {"backend": "oracle"}
+                )
+                chain(res2)
+                assignments.update(res2.assignments)
+                infeasible.update(res2.infeasible)
+                solve_ms += res2.solve_ms
+            return SolveResult(
+                nodes=nodes,
+                assignments=assignments,
+                infeasible=infeasible,
+                existing_nodes=cur_existing,
+                solve_ms=solve_ms,
+                tensorize_ms=tensorize_ms,
+            )
+
+        if not tpu_pods:
+            return _tail()
+
+        st, tsec = self._tensorize(
+            tpu_pods, provisioners, instance_types, daemonsets, unavailable,
+            trace=trace)
+        tensorize_ms += tsec * 1000.0
+        t0 = time.perf_counter()
+        new_budget = len(tpu_pods) if max_new_nodes is None else max_new_nodes
+        all_existing = list(cur_existing) + nodes
+        max_slots = len(all_existing) + new_budget
+
+        def _adopt_device(res: SolveResult) -> SolveResult:
+            """Post-device bookkeeping (metrics, what-if filtering, chain) —
+            identical for the sync and async returns."""
+            nonlocal solve_ms
             trace.annotate(backend_used="tpu")
             self.registry.histogram(SOLVER_BACKEND_DURATION).observe(
                 time.perf_counter() - t0, {"backend": "tpu"})
@@ -825,28 +1474,30 @@ class BatchScheduler:
             assignments.update(res.assignments)
             infeasible.update(res.infeasible)
             solve_ms += res.solve_ms
+            return _tail()
 
-        if cpu_pods:
-            t0c = time.perf_counter()
-            res2 = oracle_solve(
-                cpu_pods, provisioners, instance_types,
-                existing_nodes=list(cur_existing) + nodes,
-                daemonsets=daemonsets, unavailable=unavailable,
-                allow_new_nodes=allow_new_nodes,
-                max_new_nodes=None if max_new_nodes is None else max(0, max_new_nodes - len(nodes)),
+        # the port has no cold tier to serve an exhausted estimate from:
+        # every path retries at the full budget inline
+        collector = self._mega_collect
+        if dispatch and collector is not None:
+            # megabatch registration (submit_many): the first device wave
+            # joins the collector's pending batch; ONE batched dispatch
+            # later serves every slot
+            slot = collector.add(
+                st=st, existing_nodes=all_existing, max_nodes=max_slots,
+                raise_on_exhaust=False, trace=trace,
             )
-            self.registry.histogram(SOLVER_BACKEND_DURATION).observe(
-                time.perf_counter() - t0c, {"backend": "oracle"}
+            return _PendingWave(lambda: _adopt_device(slot.result().result))
+        if dispatch:
+            # async dispatch: enqueue without reading back; the caller does
+            # other host work before finish() reads the wave
+            pending = self._tpu.solve_async(
+                st, existing_nodes=all_existing, max_nodes=max_slots,
+                trace=trace,
             )
-            chain(res2)
-            assignments.update(res2.assignments)
-            infeasible.update(res2.infeasible)
-            solve_ms += res2.solve_ms
-        return SolveResult(
-            nodes=nodes,
-            assignments=assignments,
-            infeasible=infeasible,
-            existing_nodes=cur_existing,
-            solve_ms=solve_ms,
-            tensorize_ms=tensorize_ms,
+            return _PendingWave(
+                lambda: _adopt_device(pending.result().result))
+        out = self._tpu.solve(
+            st, existing_nodes=all_existing, max_nodes=max_slots, trace=trace,
         )
+        return _adopt_device(out.result)

@@ -25,14 +25,26 @@ first-fit-decreasing loop re-expressed as dense tensor math over
 scatters become masked selects, ``scatter_reduce`` for max/min, and an
 in-order (``cumsum``) one-hot sum where the reference adds floats per zone.
 
-Left out of this port for now: the mesh, compile-behind warming, the fault
-plane and the multi-host fence.  Eager PyTorch compiles nothing, so there
-is no cold program to serve around.
+Serving entry points (the reference's names): ``solve_async`` and
+``solve_many_async`` split a dispatch into an enqueue half (uploads,
+feasibility, the group loop) and a read-back half (the pending handles),
+megabatch flushes pad the slot axis to ``_mega_rung`` with copies of
+request 0, bucket keys come from ``signature`` / ``mega_signature``, and
+``solve_delta`` runs the warm-start chain.  Eager PyTorch compiles
+nothing, so the warm API keeps the reference's meaning without the stall:
+a signature is ``ready`` once this process has run it, a warm runs it on a
+background thread, and a cold signature is served on the device.
+
+Left out of this port for now: the mesh (every ``mesh`` argument accepts
+only None), the fault plane and the multi-host fence.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -52,6 +64,7 @@ from ..ops.masks import (
     skew_band_fill,
     water_fill,
 )
+from ..utils.clock import Clock
 from .types import SimNode, SolveResult
 
 BIGN = float(np.float32(1e9))  # "unbounded" node/pod counts
@@ -59,6 +72,103 @@ BIGN = float(np.float32(1e9))  # "unbounded" node/pod counts
 #: megabatch request-slot cap: one dispatch solves at most this many
 #: independent solve requests
 MEGA_MAX_SLOTS = 32
+
+
+def _no_mesh(mesh) -> None:
+    """The mesh is not ported: every ``mesh`` argument accepts only None."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the device mesh is not ported to karpenter_tpu_torch yet")
+
+
+def _mega_rung(n: int, n_dev: int = 1) -> int:
+    """Pad the request-slot axis to a power-of-two rung (1, 2, 4, ..., 32):
+    bucket keys, ``MEGABATCH_SLOTS`` and the padding-isolation contract
+    stay the reference's.  ``n_dev`` is the reference's sharded floor,
+    always 1 here."""
+    r = max(1, n_dev)
+    while r < min(max(1, n), MEGA_MAX_SLOTS) and r * 2 <= MEGA_MAX_SLOTS:
+        r *= 2
+    return r
+
+
+def mesh_shardable(mesh) -> bool:
+    """True when the megabatch slot axis can serve ``mesh``: always for the
+    port's only mesh, None."""
+    _no_mesh(mesh)
+    return True
+
+
+def max_mega_slots(mesh) -> int:
+    """Largest megabatch flush the scheduler can serve: MEGA_MAX_SLOTS."""
+    _no_mesh(mesh)
+    return _mega_rung(MEGA_MAX_SLOTS)
+
+
+def _mega_key_tail(slots: int, zone_key: int, ct_key: int, mesh) -> tuple:
+    """The megabatch bucket-key suffix: slot rung + zone/ct vocab positions.
+    The single source of this format — ``mega_signature`` and
+    ``_dispatch_prepared`` both append exactly this."""
+    _no_mesh(mesh)
+    return (
+        ("mega_slots", _mega_rung(slots)),
+        ("zk", zone_key),
+        ("ck", ct_key),
+    )
+
+
+#: the megabatch bucket-key components that are PADDED axis rungs — two
+#: buckets differing only here can share one dispatch when one dominates
+UNIFIABLE_DIMS = ("G", "C", "NR", "NE_pad", "S", "P")
+#: the non-dims tail components ``_mega_key_tail`` appends (plus the
+#: reference's mesh fingerprint, which a port key never carries)
+_MEGA_TAIL_NAMES = tuple(
+    k for k, _ in _mega_key_tail(1, 0, 0, None)) + ("mesh",)
+
+
+def unify_mega_keys(a: tuple, b: tuple) -> Optional[tuple]:
+    """The DOMINANT of two megabatch bucket keys when one subsumes the
+    other, else None: a flush holding bucket A can admit a bucket-B request
+    iff every axis rung of one key >= the other's and everything else
+    (vocab key positions, track, slot rung) matches exactly; the dominated
+    requests then build their tensors at the dominant dims
+    (``solve_many_async(target_dims=...)``)."""
+    if a == b:
+        return a
+    da, db = dict(a), dict(b)
+    if set(da) != set(db):
+        return None
+    a_dom = b_dom = True
+    for k, va in da.items():
+        vb = db[k]
+        if va == vb:
+            continue
+        if k not in UNIFIABLE_DIMS:
+            return None
+        if va < vb:
+            a_dom = False
+        else:
+            b_dom = False
+    if a_dom:
+        return a
+    if b_dom:
+        return b
+    return None
+
+
+def mega_key_dims(key: tuple) -> dict:
+    """The solve_dims dict embedded in a megabatch bucket key (everything
+    but the ``_mega_key_tail`` components)."""
+    return {k: v for k, v in dict(key).items() if k not in _MEGA_TAIL_NAMES}
+
+
+def mega_key_at_slots(key: tuple, slots: int, mesh) -> tuple:
+    """Re-key a slots=1 megabatch bucket key at a real flush size: the
+    dims part stays, the tail is re-derived for ``slots``."""
+    d = dict(key)
+    dims_part = tuple(sorted(
+        (k, v) for k, v in d.items() if k not in _MEGA_TAIL_NAMES))
+    return dims_part + _mega_key_tail(slots, d["zk"], d["ck"], mesh)
 
 
 def _rung(n: int, quantum: int, linear_max: int, ratio: float = 1.5) -> int:
@@ -112,7 +222,9 @@ def solve_dims(st: SolveTensors, *, NE: int, node_budget: int,
     """The padded tensor dimensions of a solve of ``st`` against ``NE``
     existing nodes with ``node_budget`` max node slots — the same rung
     bucketing as the reference, so both packages pad a batch identically.
-    ``full_nr`` forces the worst-case NR axis (the slot-exhaustion retry)."""
+    ``full_nr`` forces the worst-case NR axis (the slot-exhaustion retry).
+    ``a``/``b`` are the reference's mesh axis divisors, always 1 here (no
+    mesh): kept so a signature is the reference's tuple."""
     G_pad = _rung(st.G, 16, 128)
     C_pad = _rung(max(1, st.C), 64, 512)
     nr_slots = node_budget if full_nr else _nr_estimate(st, NE, node_budget)
@@ -124,6 +236,7 @@ def solve_dims(st: SolveTensors, *, NE: int, node_budget: int,
     return dict(
         G=G_pad, C=C_pad, NR=NR, NE_pad=NE_pad, S=S_pad, P=P_pad,
         D=st.D, R=st.R, Z=max(1, st.n_zones), K=K, W=W, track=bool(track),
+        a=1, b=1,
     )
 
 
@@ -753,12 +866,19 @@ class TpuSolveOutput:
 
 
 class SlotsExhausted(Exception):
-    """The optimistic NR axis ran out of node slots and the caller asked not
-    to retry at the full budget (``raise_on_exhaust``)."""
+    """The optimistic NR axis ran out of node slots, the full-budget
+    signature has not run in this process yet, and the caller asked not to
+    retry there (``raise_on_exhaust``)."""
 
-    def __init__(self, full_dims: tuple) -> None:
-        super().__init__("node-slot estimate exhausted")
-        self.full_dims = full_dims
+    def __init__(self, full_sig: tuple) -> None:
+        super().__init__("node-slot estimate exhausted; full signature cold")
+        self.full_sig = full_sig
+
+
+class MegaBucketMismatch(ValueError):
+    """A megabatch flush's requests do not share one bucket (or a caller
+    over-filled the slots).  The collector degrades the flush to serial
+    per-request dispatches — clients never see this."""
 
 
 def _node_budget(st: SolveTensors, NE: int, max_nodes: Optional[int]) -> int:
@@ -854,13 +974,246 @@ _INDEX_CONSTS = ("g_zone_spread", "g_host_spread", "g_zone_anti",
 class TpuSolver:
     """Builds the padded tensors of a solve, runs the batched group loop on
     ``device`` and extracts node plans.  ``device=None`` is the CUDA card
-    and raises without one; the tests pass ``device="cpu"``."""
+    and raises without one; the tests pass ``device="cpu"``.
 
-    def __init__(self, device=None) -> None:
+    Readiness is tracked per signature (the padded-dims key of
+    ``solve_dims``, plus the slot-rung tail for a megabatch) with the
+    reference's meaning: a signature is ``ready`` once this process has run
+    it.  Eager PyTorch compiles nothing, so a cold signature is served on
+    the device like a warm one; ``warm_async`` runs a signature on a
+    background thread (the callers' warmup), on the reference's warm
+    machinery: a concurrency cap, a bounded FIFO queue and a failure
+    backoff."""
+
+    #: at most this many concurrent background warms; extras queue (FIFO,
+    #: bounded) and start as slots free up
+    MAX_CONCURRENT_WARMS = 2
+    MAX_QUEUED_WARMS = 8
+    #: a signature whose background warm failed is not retried for this long
+    WARM_FAILURE_BACKOFF = 300.0
+
+    def __init__(self, device=None, clock: Optional[Clock] = None) -> None:
         self.device = resolve_device(device)
-        # shape families whose optimistic NR estimate exhausted once: later
-        # solves of the family go straight to the full-budget axis
-        self._nr_exhausted: set = set()
+        # injectable clock for the warm-failure backoff
+        self._clock = clock or Clock()
+        self._lock = threading.Lock()
+        self._ready: set = set()                     # guarded-by: _lock
+        self._compiling: set = set()                 # guarded-by: _lock
+        self._queued: list = []                      # guarded-by: _lock
+        self._failed_until: Dict[tuple, float] = {}  # guarded-by: _lock
+        self._stopped = False                        # guarded-by: _lock
+        # shape families whose optimistic NR estimate exhausted once: their
+        # signature resolves to the full-budget dims from then on
+        self._nr_exhausted: set = set()              # guarded-by: _lock
+
+    # ---- signatures and readiness ----------------------------------------
+    def signature(
+        self,
+        st: SolveTensors,
+        *,
+        existing_nodes: Sequence[SimNode] = (),
+        max_nodes: Optional[int] = None,
+        track_assignments: bool = True,
+        mesh=None,
+    ) -> tuple:
+        """The padded-dims key of this solve (the reference's tuple on the
+        same inputs); the full-budget dims once the family exhausted."""
+        _no_mesh(mesh)
+        NE = len(existing_nodes)
+        node_budget = _node_budget(st, NE, max_nodes)
+        dims = solve_dims(st, NE=NE, node_budget=node_budget,
+                          track=track_assignments)
+        key = _dims_key(dims)
+        with self._lock:
+            exhausted = key in self._nr_exhausted
+        if exhausted:
+            key = _dims_key(solve_dims(
+                st, NE=NE, node_budget=node_budget,
+                track=track_assignments, full_nr=True))
+        return key
+
+    def mega_signature(
+        self,
+        st: SolveTensors,
+        *,
+        existing_nodes: Sequence[SimNode] = (),
+        max_nodes: Optional[int] = None,
+        track_assignments: bool = True,
+        slots: int = 2,
+        mesh=None,
+    ) -> tuple:
+        """Bucket key of the megabatch that would serve a ``slots``-request
+        batch of this shape: the single-solve key plus the padded slot rung
+        and the vocab positions of the zone/ct keys (two catalogs interning
+        the keys differently are different buckets)."""
+        base = self.signature(
+            st, existing_nodes=existing_nodes, max_nodes=max_nodes,
+            track_assignments=track_assignments, mesh=mesh,
+        )
+        return base + _mega_key_tail(
+            slots, st.vocab.key_id[L.ZONE], st.vocab.key_id[L.CAPACITY_TYPE],
+            mesh,
+        )
+
+    def ready(self, sig: tuple) -> bool:
+        with self._lock:
+            return sig in self._ready
+
+    def compiling(self, sig: tuple) -> bool:
+        with self._lock:
+            return sig in self._compiling
+
+    def warm_pending(self, sig: tuple) -> bool:
+        """A warm for ``sig`` is running, queued, or in its failure backoff
+        — admitting another would be refused."""
+        with self._lock:
+            return (sig in self._compiling
+                    or any(s == sig for s, _ in self._queued)
+                    or self._clock.now() < self._failed_until.get(sig, 0.0))
+
+    def compiles_in_flight(self) -> int:
+        with self._lock:
+            return len(self._compiling)
+
+    def warm_idle(self) -> bool:
+        """No background warm running or queued."""
+        with self._lock:
+            return not self._compiling and not self._queued
+
+    def stop_warms(self) -> None:
+        """Drop all queued warms and stop the drain (shutdown): exit then
+        waits only for the warms already running, never the queue."""
+        with self._lock:
+            self._stopped = True
+            self._queued.clear()
+
+    def _mark_ready(self, sig: tuple) -> None:
+        # deliberately does NOT discard the sig from _compiling: a warm
+        # thread for it may still be running, and "compiles_in_flight() ==
+        # 0 implies every on_done ran" requires the warm thread itself to
+        # clear its entry AFTER its on_done callback
+        with self._lock:
+            self._ready.add(sig)
+
+    def warm_async(
+        self,
+        st: SolveTensors,
+        *,
+        existing_nodes: Sequence[SimNode] = (),
+        max_nodes: Optional[int] = None,
+        track_assignments: bool = True,
+        mesh=None,
+        on_done=None,
+        slots: Optional[int] = None,
+    ) -> bool:
+        """Run this solve's signature on a background thread (the full
+        solve, result discarded).  Returns True when the warm was accepted
+        (started or queued), False when the signature is already ready /
+        running / queued, is in its failure backoff, or the queue is full.
+        ``on_done(sig, seconds, error)`` fires from the worker thread when
+        the warm ends.  ``slots`` > 1 warms the megabatch at that slot
+        rung instead of the single solve."""
+        if slots and slots > 1:
+            sig = self.mega_signature(
+                st, existing_nodes=existing_nodes, max_nodes=max_nodes,
+                track_assignments=track_assignments, slots=slots, mesh=mesh,
+            )
+        else:
+            slots = None
+            sig = self.signature(
+                st, existing_nodes=existing_nodes, max_nodes=max_nodes,
+                track_assignments=track_assignments, mesh=mesh,
+            )
+        kwargs = dict(
+            st=st, existing_nodes=existing_nodes, max_nodes=max_nodes,
+            track_assignments=track_assignments, on_done=on_done,
+            slots=slots,
+        )
+        return self._admit_warm(sig, kwargs)
+
+    def warm_custom(self, sig, thunk, on_done=None) -> bool:
+        """Run an arbitrary prepared device program on the warm machinery
+        (concurrency cap, bounded queue, failure backoff): ``thunk()`` must
+        run — and ``_mark_ready`` — the program ``sig`` names."""
+        return self._admit_warm(sig, dict(on_done=on_done, thunk=thunk))
+
+    def _admit_warm(self, sig: tuple, kwargs: dict) -> bool:
+        with self._lock:
+            if self._stopped:
+                return False
+            if sig in self._ready or sig in self._compiling:
+                return False
+            if any(s == sig for s, _ in self._queued):
+                return False
+            if self._clock.now() < self._failed_until.get(sig, 0.0):
+                return False  # recent warm failure: back off
+            if len(self._compiling) >= self.MAX_CONCURRENT_WARMS:
+                if len(self._queued) >= self.MAX_QUEUED_WARMS:
+                    return False
+                self._queued.append((sig, kwargs))
+                return True
+            self._compiling.add(sig)
+        self._spawn_warm(sig, kwargs)
+        return True
+
+    def _spawn_warm(self, sig: tuple, kwargs: dict) -> None:
+        on_done = kwargs.pop("on_done")
+        slots = kwargs.pop("slots", None)
+        thunk = kwargs.pop("thunk", None)
+
+        def work():
+            t0 = time.perf_counter()
+            err = None
+            try:
+                if thunk is not None:
+                    thunk()
+                elif slots:
+                    # megabatch warm: one request padded up to the slot
+                    # rung runs exactly the batch a full flush will
+                    outs = self.solve_many([dict(kwargs)], min_slots=slots)
+                    if isinstance(outs[0], Exception):
+                        raise outs[0]
+                else:
+                    self.solve(**kwargs)
+            # a warm failure is surfaced through on_done (the scheduler's
+            # callback logs it) and arms the retry backoff
+            except Exception as e:
+                err = e
+                with self._lock:
+                    self._failed_until[sig] = (self._clock.now()
+                                               + self.WARM_FAILURE_BACKOFF)
+            try:
+                if on_done is not None:
+                    on_done(sig, time.perf_counter() - t0, err)
+            except Exception:  # a throwing callback must not wedge the tier
+                logging.getLogger(__name__).warning(
+                    "warm on_done callback raised", exc_info=True)
+            finally:
+                # clear the in-flight entry only AFTER on_done: watchers
+                # poll compiles_in_flight() down to 0 and then read the
+                # metrics the callback records
+                with self._lock:
+                    self._compiling.discard(sig)
+            # drain: start the next queued warm that is still cold — unless
+            # the process is exiting or stop_warms() ran
+            while True:
+                with self._lock:
+                    if (self._stopped
+                            or not threading.main_thread().is_alive()
+                            or not self._queued
+                            or len(self._compiling)
+                            >= self.MAX_CONCURRENT_WARMS):
+                        return
+                    next_sig, next_kwargs = self._queued.pop(0)
+                    if next_sig in self._ready:
+                        continue  # run by a direct solve meanwhile
+                    self._compiling.add(next_sig)
+                self._spawn_warm(next_sig, next_kwargs)
+                return
+
+        # NON-daemon: interpreter exit waits for a running warm instead of
+        # killing a thread in the middle of device work
+        threading.Thread(target=work, name="tpu-solver-warm").start()
 
     def _host_arrays(
         self,
@@ -1039,21 +1392,23 @@ class TpuSolver:
             zone_key, ct_key,
         )
 
-    def _run_entries(self, entries: Sequence[dict], zone_key: int,
-                     ct_key: int):
-        """One dispatch over prepared entries (all at one dims bucket):
-        feasibility per distinct input set, then the batched group loop.
-        Returns host (carry rows, ys rows)."""
+    def _enqueue_entries(self, entries: Sequence[dict], zone_key: int,
+                         ct_key: int):
+        """The enqueue half of one dispatch over prepared entries (all at
+        one dims bucket): uploads, feasibility per distinct input set, then
+        the batched group loop.  Returns the device ``(carry, ys)`` with a
+        leading slot axis; nothing here reads the device back."""
         dims0 = entries[0]["dims"]
         if not all(e["dims"] == dims0 for e in entries):
-            raise ValueError("megabatch entries span dims buckets")
+            raise MegaBucketMismatch("megabatch entries span dims buckets")
         NR, Z = dims0["NR"], dims0["Z"]
         track = entries[0]["r"]["track_assignments"]
         keys = list(entries[0]["np_consts"])
 
-        # feasibility: slots built from one base share their inputs —
-        # compute once per distinct set (identity), as the reference's
-        # vmapped program computes the same values per slot
+        # feasibility: slots built from one base (and padding copies of
+        # request 0) share their inputs — compute once per distinct set
+        # (identity), as the reference's vmapped program computes the same
+        # values per slot
         memo: Dict[tuple, tuple] = {}
         Fs, DOs = [], []
         for e in entries:
@@ -1099,11 +1454,103 @@ class TpuSolver:
             k: np.stack([np.asarray(e["np_consts"][k]) for e in entries])
             for k in ("g_zone_spread", "g_zone_anti", "g_zone_paff",
                       "g_host_paff")})
-        carry, ys = _run_scan(consts, tuple(init), NR, Z, track, flags)
-        # the one device-to-host read of the dispatch
+        return _run_scan(consts, tuple(init), NR, Z, track, flags)
+
+    @staticmethod
+    def _read_back(carry, ys):
+        """The read-back half: the one device-to-host read of a dispatch."""
         carry_np = [x.cpu().numpy() for x in carry]
         ys_np = ys.cpu().numpy() if ys is not None else None
         return carry_np, ys_np
+
+    def _run_entries(self, entries: Sequence[dict], zone_key: int,
+                     ct_key: int):
+        """One synchronous dispatch over prepared entries: enqueue, then
+        read back.  Returns host (carry rows, ys rows)."""
+        return self._read_back(*self._enqueue_entries(entries, zone_key,
+                                                      ct_key))
+
+    # ---- dispatch preamble ----------------------------------------------
+    def prepare(
+        self,
+        st: SolveTensors,
+        *,
+        existing_nodes: Sequence[SimNode] = (),
+        max_nodes: Optional[int] = None,
+        track_assignments: bool = True,
+        mesh=None,
+        full_nr: bool = False,
+    ):
+        """Build ``(run, entry, NE)``: ``entry`` holds the solve's padded
+        host arrays and ``run(entry)`` enqueues the one-slot group loop,
+        returning the device ``(carry, ys)`` unread."""
+        _no_mesh(mesh)
+        NE = len(existing_nodes)
+        node_budget = _node_budget(st, NE, max_nodes)
+        np_consts, feas, np_init, dims = self._host_arrays(
+            st, existing_nodes, node_budget=node_budget,
+            track_assignments=track_assignments, full_nr=full_nr)
+        entry = dict(
+            r=dict(st=st, existing_nodes=existing_nodes, max_nodes=max_nodes,
+                   track_assignments=track_assignments),
+            np_consts=np_consts, feas=feas, np_init=np_init, dims=dims, NE=NE)
+        zone_key = st.vocab.key_id[L.ZONE]
+        ct_key = st.vocab.key_id[L.CAPACITY_TYPE]
+
+        def run(entry):
+            return self._enqueue_entries([entry], zone_key, ct_key)
+
+        return run, entry, NE
+
+    def _prepare_dispatch(
+        self, st: SolveTensors, existing_nodes, max_nodes,
+        track_assignments: bool, mesh, full_nr: bool,
+    ):
+        """Shared dispatch preamble of ``solve`` and ``solve_async`` — the
+        single source of the dims / exhausted-promotion steps, so the
+        synchronous and the async paths can never run different batches.
+        Returns ``(run, entry, NE, est_dims, full_dims, full_nr)``;
+        ``run(entry)`` has NOT been called."""
+        _no_mesh(mesh)
+        NE0 = len(existing_nodes)
+        node_budget = _node_budget(st, NE0, max_nodes)
+        est_dims = solve_dims(st, NE=NE0, node_budget=node_budget,
+                              track=track_assignments)
+        full_dims = solve_dims(st, NE=NE0, node_budget=node_budget,
+                               track=track_assignments, full_nr=True)
+        if not full_nr:
+            # families that exhausted the optimistic NR go straight to the
+            # full-budget axis
+            with self._lock:
+                full_nr = _dims_key(est_dims) in self._nr_exhausted
+        run, entry, NE = self.prepare(
+            st, existing_nodes=existing_nodes, max_nodes=max_nodes,
+            track_assignments=track_assignments, full_nr=full_nr,
+        )
+        return run, entry, NE, est_dims, full_dims, full_nr
+
+    def _maybe_retry_exhausted(
+        self, carry, est_dims: dict, full_dims: dict, full_nr: bool,
+        raise_on_exhaust: bool, retry,
+    ) -> Optional["TpuSolveOutput"]:
+        """Slot-exhaustion epilogue shared by ``solve`` and both pending
+        handles: when the optimistic NR axis ran out of node slots AND left
+        pods unplaced, remember the family (``_nr_exhausted``), raise
+        :class:`SlotsExhausted` under ``raise_on_exhaust`` while the
+        full-budget signature has not run yet, else run ``retry()`` (a
+        full-budget re-solve).  Returns None when the solve stands.
+        ``carry`` is one slot's host carry."""
+        if full_nr or est_dims["NR"] >= full_dims["NR"]:
+            return None
+        if int(carry[7]) < est_dims["NR"] or int(carry[11].sum()) <= 0:
+            return None
+        full_key = _dims_key(full_dims)
+        with self._lock:
+            self._nr_exhausted.add(_dims_key(est_dims))
+            full_ready = full_key in self._ready
+        if raise_on_exhaust and not full_ready:
+            raise SlotsExhausted(full_key)
+        return retry()
 
     # ---- solves ---------------------------------------------------------
     def solve(
@@ -1113,67 +1560,156 @@ class TpuSolver:
         existing_nodes: Sequence[SimNode] = (),
         max_nodes: Optional[int] = None,
         track_assignments: bool = True,
+        mesh=None,
         full_nr: bool = False,
         raise_on_exhaust: bool = False,
         trace=None,
     ) -> TpuSolveOutput:
         """One device solve (a one-slot megabatch).  When the optimistic NR
         axis ran out of node slots with pods left unplaced, the solve is
-        retried once at the full budget — or, with ``raise_on_exhaust``,
-        :class:`SlotsExhausted` is raised instead."""
+        retried once at the full budget — or, with ``raise_on_exhaust`` and
+        the full-budget signature not run yet, :class:`SlotsExhausted` is
+        raised instead."""
         t0 = time.perf_counter()
         trace = trace or NULL_TRACE
-        NE = len(existing_nodes)
-        node_budget = _node_budget(st, NE, max_nodes)
-        est_dims = solve_dims(st, NE=NE, node_budget=node_budget,
-                              track=track_assignments)
-        full_dims = solve_dims(st, NE=NE, node_budget=node_budget,
-                               track=track_assignments, full_nr=True)
-        if not full_nr:
-            full_nr = _dims_key(est_dims) in self._nr_exhausted
         with trace.span("device_prepare"):
-            np_consts, feas, np_init, dims = self._host_arrays(
-                st, existing_nodes, node_budget=node_budget,
-                track_assignments=track_assignments, full_nr=full_nr)
-        entry = dict(
-            r=dict(st=st, existing_nodes=existing_nodes, max_nodes=max_nodes,
-                   track_assignments=track_assignments),
-            np_consts=np_consts, feas=feas, np_init=np_init, dims=dims)
+            run, entry, NE, est_dims, full_dims, full_nr = \
+                self._prepare_dispatch(st, existing_nodes, max_nodes,
+                                       track_assignments, mesh, full_nr)
         with trace.span("device_execute", full_nr=full_nr):
-            carry_np, ys_np = self._run_entries(
-                [entry], st.vocab.key_id[L.ZONE],
-                st.vocab.key_id[L.CAPACITY_TYPE])
+            carry_np, ys_np = self._read_back(*run(entry))
         solve_ms = (time.perf_counter() - t0) * 1000.0
+        # mark ready the key of the batch that ACTUALLY ran
+        self._mark_ready(_dims_key(full_dims if full_nr else est_dims))
         carry = tuple(x[0] for x in carry_np)
-
-        if (not full_nr and est_dims["NR"] < full_dims["NR"]
-                and int(carry[7]) >= est_dims["NR"]
-                and int(carry[11].sum()) > 0):
-            # slot exhaustion: remember the family, retry at full budget
-            self._nr_exhausted.add(_dims_key(est_dims))
-            if raise_on_exhaust:
-                raise SlotsExhausted(_dims_key(full_dims))
-            return self.solve(
+        retried = self._maybe_retry_exhausted(
+            carry, est_dims, full_dims, full_nr, raise_on_exhaust,
+            lambda: self.solve(
                 st, existing_nodes=existing_nodes, max_nodes=max_nodes,
                 track_assignments=track_assignments, full_nr=True,
-                trace=trace)
-
+                trace=trace),
+        )
+        if retried is not None:
+            return retried
         with trace.span("extract"):
             return self._extract(
                 st, carry, ys_np[0] if ys_np is not None else None,
                 existing_nodes, NE, solve_ms)
 
+    def solve_async(
+        self,
+        st: SolveTensors,
+        *,
+        existing_nodes: Sequence[SimNode] = (),
+        max_nodes: Optional[int] = None,
+        track_assignments: bool = True,
+        mesh=None,
+        raise_on_exhaust: bool = False,
+        trace=None,
+    ) -> "PendingTpuSolve":
+        """Dispatch one device solve WITHOUT reading it back: the uploads
+        and the group loop are enqueued on the calling thread's current
+        stream, and :meth:`PendingTpuSolve.result` reads back and extracts.
+        The group loop is issued from Python, so the enqueue costs about
+        as much host time as the solve (PERF.md)."""
+        t0 = time.perf_counter()
+        trace = trace or NULL_TRACE
+        with trace.span("device_dispatch"):
+            run, entry, NE, est_dims, full_dims, full_nr = \
+                self._prepare_dispatch(st, existing_nodes, max_nodes,
+                                       track_assignments, mesh, False)
+            carry, ys = run(entry)  # enqueued, not read
+        return PendingTpuSolve(
+            solver=self, st=st, existing_nodes=existing_nodes, NE=NE,
+            carry=carry, ys=ys, t0=t0, track=track_assignments,
+            est_dims=est_dims, full_dims=full_dims, full_nr=full_nr,
+            raise_on_exhaust=raise_on_exhaust,
+            solve_kwargs=dict(
+                existing_nodes=existing_nodes, max_nodes=max_nodes,
+                track_assignments=track_assignments,
+            ),
+            trace=trace,
+        )
+
+    def solve_many_async(
+        self,
+        requests: Sequence[dict],
+        *,
+        min_slots: Optional[int] = None,
+        mesh=None,
+        target_dims: Optional[dict] = None,
+    ) -> "PendingMegaSolve":
+        """Dispatch B independent, bucket-compatible solve requests as ONE
+        batched group loop over padded request slots, WITHOUT reading back;
+        :meth:`PendingMegaSolve.results` is the one batch-wide read.
+
+        Each request is a dict with ``st`` (required) and optionally
+        ``existing_nodes``, ``max_nodes``, ``track_assignments``,
+        ``raise_on_exhaust``, ``trace``; every request must resolve to the
+        same :meth:`mega_signature` bucket.  The slot axis pads up to the
+        power-of-two rung (``_mega_rung``; ``min_slots`` forces a larger
+        rung) with copies of request 0 that share its arrays, and their
+        outputs are discarded — slots never interact, so padding cannot
+        leak into a real request's result.  ``target_dims`` builds every
+        request at caller-chosen padded dims (a unified mixed-bucket flush,
+        :func:`unify_mega_keys`)."""
+        if not requests:
+            raise MegaBucketMismatch("empty megabatch")
+        if len(requests) > MEGA_MAX_SLOTS:
+            raise MegaBucketMismatch(
+                f"{len(requests)} requests exceed MEGA_MAX_SLOTS="
+                f"{MEGA_MAX_SLOTS}")
+        t0 = time.perf_counter()
+        defaults = dict(
+            existing_nodes=(), max_nodes=None, track_assignments=True,
+            raise_on_exhaust=False, trace=NULL_TRACE,
+        )
+        reqs = [{**defaults, **r} for r in requests]
+        n_slots = max(len(reqs), min_slots or 1)
+        # ONE snapshot of the exhausted families for the whole call: a warm
+        # thread flipping _nr_exhausted mid-flush must not make the
+        # per-request dims diverge
+        with self._lock:
+            exhausted = set(self._nr_exhausted)
+        track = reqs[0]["track_assignments"]
+        zone_key = reqs[0]["st"].vocab.key_id[L.ZONE]
+        ct_key = reqs[0]["st"].vocab.key_id[L.CAPACITY_TYPE]
+
+        entries = []
+        for r in reqs:
+            st = r["st"]
+            NE = len(r["existing_nodes"])
+            nb = _node_budget(st, NE, r["max_nodes"])
+            est_dims = solve_dims(st, NE=NE, node_budget=nb, track=track)
+            full_dims = solve_dims(st, NE=NE, node_budget=nb, track=track,
+                                   full_nr=True)
+            full_nr = _dims_key(est_dims) in exhausted
+            np_consts, feas, np_init, dims = self._host_arrays(
+                st, r["existing_nodes"], node_budget=nb,
+                track_assignments=track, full_nr=full_nr,
+                dims=dict(target_dims) if target_dims is not None else None,
+            )
+            entries.append(dict(
+                r=r, np_consts=np_consts, feas=feas, np_init=np_init,
+                dims=dims, est_dims=est_dims, full_dims=full_dims,
+                full_nr=full_nr, NE=NE,
+            ))
+        return self._dispatch_prepared(entries, n_slots=n_slots, track=track,
+                                       zone_key=zone_key, ct_key=ct_key,
+                                       t0=t0, mesh=mesh)
+
     def solve_many_prepared(self, entries: Sequence[dict]) -> List[TpuSolveOutput]:
         """Solve PRE-BUILT entries (each with ``r``, ``np_consts``, ``feas``,
         ``np_init``, ``dims``, ``NE``; all at one dims bucket, full NR) as
-        ONE batched dispatch; one output per entry, in order.  The
-        hierarchical solve derives every block's entry from one shared base
-        build (solver/hierarchy.py build_block_entries)."""
+        ONE batched dispatch, unpadded; one output per entry, in order.
+        The hierarchical solve and the consolidation sweep derive every
+        entry from one shared base build."""
         if not entries:
-            raise ValueError("empty megabatch")
+            raise MegaBucketMismatch("empty megabatch")
         if len(entries) > MEGA_MAX_SLOTS:
-            raise ValueError(
-                f"{len(entries)} entries exceed MEGA_MAX_SLOTS={MEGA_MAX_SLOTS}")
+            raise MegaBucketMismatch(
+                f"{len(entries)} entries exceed MEGA_MAX_SLOTS="
+                f"{MEGA_MAX_SLOTS}")
         t0 = time.perf_counter()
         st0 = entries[0]["r"]["st"]
         carry_np, ys_np = self._run_entries(
@@ -1188,6 +1724,112 @@ class TpuSolver:
                 ys_np[i] if ys_np is not None else None,
                 r["existing_nodes"], e["NE"], elapsed_ms))
         return outs
+
+    def _dispatch_prepared(
+        self, entries, *, n_slots: int, track: bool, zone_key: int,
+        ct_key: int, t0: float, mesh=None,
+    ) -> "PendingMegaSolve":
+        """Pad + enqueue prepared entries; validates the one-bucket
+        invariant (a typed :class:`MegaBucketMismatch` the collector
+        degrades to serial dispatches on)."""
+        _no_mesh(mesh)
+        reqs = [e["r"] for e in entries]
+        dims0 = entries[0]["dims"]
+        if not all(e["dims"] == dims0 for e in entries) or any(
+            r["st"].vocab.key_id[L.ZONE] != zone_key
+            or r["st"].vocab.key_id[L.CAPACITY_TYPE] != ct_key
+            or r["track_assignments"] != track
+            for r in reqs
+        ):
+            raise MegaBucketMismatch("requests span megabatch buckets")
+        mega_key = _dims_key(dims0) + _mega_key_tail(
+            n_slots, zone_key, ct_key, mesh)
+        B = len(entries)
+        B_pad = _mega_rung(n_slots)
+        # padding slots are request 0's entry itself: they share its
+        # arrays, so its uploads and feasibility are reused, never rebuilt
+        padded = list(entries) + [entries[0]] * (B_pad - B)
+        # per-request trace stamps: the shared device phase is recorded on
+        # every request's trace as a pre-closed "megabatch" span
+        t_starts = [e["r"]["trace"].now() for e in entries]
+        carry_b, ys_b = self._enqueue_entries(padded, zone_key, ct_key)
+        return PendingMegaSolve(
+            solver=self, entries=entries, carry_b=carry_b, ys_b=ys_b,
+            t0=t0, t_starts=t_starts, track=track, B=B, B_pad=B_pad,
+            mega_key=mega_key,
+        )
+
+    def solve_many(
+        self,
+        requests: Sequence[dict],
+        *,
+        min_slots: Optional[int] = None,
+        mesh=None,
+    ) -> List[object]:
+        """Synchronous megabatch: :meth:`solve_many_async` + the one
+        batch-wide read.  Returns one entry per request IN ORDER: a
+        :class:`TpuSolveOutput`, or the Exception that request alone hit —
+        a bad slot must not poison its batchmates.  Per-request
+        ``solve_ms`` is the megabatch wall time (dispatch to read-back)."""
+        if not requests:
+            return []
+        return self.solve_many_async(
+            requests, min_slots=min_slots, mesh=mesh).results()
+
+    def solve_delta(
+        self,
+        prev: SolveResult,
+        added: Sequence = (),
+        removed: Sequence[str] = (),
+        iced: Sequence[object] = (),
+        *,
+        provisioners,
+        instance_types,
+        daemonsets: Sequence = (),
+        unavailable=None,
+        max_delta_frac: Optional[float] = None,
+        force_full: bool = False,
+        tensorize_cache=None,
+        registry=None,
+        trace=None,
+    ):
+        """Warm-start delta solve: reuse ``prev``'s assignment and solve only
+        the displaced subproblem (solver/warmstart.py has the tiering and
+        guards).  ``added`` are new pods, ``removed`` pod names leaving,
+        ``iced`` newly unavailable offerings or reclaimed node names.  The
+        displaced subproblem is seeded from the surviving nodes (their
+        residual capacity, selector counts, zone counters and provisioner
+        usage); a ``TensorizeCache`` reuses its catalog-side context
+        across the chain.  Consumes ``prev``; returns a ``DeltaOutcome``.
+        Device-expressible batches only — :meth:`BatchScheduler.solve_delta`
+        brings the full fallback ladder."""
+        from ..models.tensorize import tensorize as _tensorize
+        from . import warmstart
+
+        def _tz(pods, unavail):
+            if tensorize_cache is not None:
+                st, _tier = tensorize_cache.tensorize(
+                    pods, provisioners, instance_types,
+                    daemonsets=daemonsets, unavailable=unavail,
+                )
+                return st
+            return _tensorize(pods, provisioners, instance_types,
+                              daemonsets=daemonsets, unavailable=unavail)
+
+        def _solve(pods, existing, unavail):
+            st = _tz(pods, unavail)
+            out = self.solve(
+                st, existing_nodes=existing,
+                max_nodes=len(existing) + len(pods), trace=trace,
+            )
+            return out.result
+
+        return warmstart.delta_solve(
+            prev, added, removed, iced,
+            solve_displaced=_solve, solve_full=_solve,
+            max_delta_frac=max_delta_frac, registry=registry,
+            unavailable=unavailable, force_full=force_full,
+        )
 
     # ---- result extraction ---------------------------------------------
     def _extract(
@@ -1289,6 +1931,152 @@ class TpuSolver:
         if di < 0:
             return ""
         return st.ct_names[di % n_ct]
+
+
+def _dispatch_stream(device):
+    """The stream a dispatch was enqueued on (None on the host): the
+    read-back runs on it, whichever thread resolves the handle, so every
+    dispatch keeps one stream from upload to read."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.current_stream(device)
+
+
+def _on_stream(stream):
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())
+
+
+class PendingTpuSolve:
+    """Handle for an async-dispatched device solve (``TpuSolver.solve_async``).
+
+    ``result()`` reads back (the one device-to-host read of the dispatch)
+    and extracts; its ``solve_ms`` spans dispatch start to read-back
+    completion.  Idempotent and safe to call from any thread; the
+    slot-exhaustion retry matches ``solve``."""
+
+    def __init__(self, solver, st, existing_nodes, NE, carry, ys, t0, track,
+                 est_dims, full_dims, full_nr, raise_on_exhaust,
+                 solve_kwargs, trace=NULL_TRACE) -> None:
+        self.solver = solver
+        self.trace = trace
+        self.st = st
+        self.existing_nodes = existing_nodes
+        self.NE = NE
+        self.carry = carry
+        self.ys = ys
+        self.t0 = t0
+        self.track = track
+        self.est_dims = est_dims
+        self.full_dims = full_dims
+        self.full_nr = full_nr
+        self.raise_on_exhaust = raise_on_exhaust
+        self.solve_kwargs = solve_kwargs
+        self.stream = _dispatch_stream(solver.device)
+        self._lock = threading.Lock()
+        self._out: Optional[TpuSolveOutput] = None
+
+    def result(self) -> TpuSolveOutput:
+        with self._lock:
+            if self._out is None:
+                self._out = self._resolve()
+            return self._out
+
+    def _resolve(self) -> TpuSolveOutput:
+        s = self.solver
+        with self.trace.span("device_fence"), _on_stream(self.stream):
+            carry_np, ys_np = s._read_back(self.carry, self.ys)
+        elapsed_ms = (time.perf_counter() - self.t0) * 1000.0
+        s._mark_ready(_dims_key(self.full_dims if self.full_nr
+                                else self.est_dims))
+        carry = tuple(x[0] for x in carry_np)
+        retried = s._maybe_retry_exhausted(
+            carry, self.est_dims, self.full_dims, self.full_nr,
+            self.raise_on_exhaust,
+            lambda: s.solve(self.st, full_nr=True, **self.solve_kwargs),
+        )
+        if retried is not None:
+            return retried
+        with self.trace.span("extract"):
+            return s._extract(
+                self.st, carry,
+                ys_np[0] if self.track and ys_np is not None else None,
+                self.existing_nodes, self.NE, elapsed_ms)
+
+
+class PendingMegaSolve:
+    """Handle for an async-dispatched megabatch (``solve_many_async``):
+    ``results()`` is the ONE batch-wide device-to-host read, then per-slot
+    extraction; one output per real request, in order (a
+    :class:`TpuSolveOutput`, or the exception that slot alone hit).
+    Idempotent and safe to call from any thread: the first caller reads,
+    later ones get the cached outputs; per-slot slot-exhaustion semantics
+    match ``solve_many``."""
+
+    def __init__(self, solver, entries, carry_b, ys_b, t0, t_starts, track,
+                 B, B_pad, mega_key) -> None:
+        self.solver = solver
+        self.entries = entries
+        self.carry_b = carry_b
+        self.ys_b = ys_b
+        self.t0 = t0
+        self.t_starts = t_starts
+        self.track = track
+        self.B = B
+        self.B_pad = B_pad
+        self.mega_key = mega_key
+        self.stream = _dispatch_stream(solver.device)
+        self._lock = threading.Lock()
+        self._outputs: Optional[List[object]] = None
+
+    def results(self) -> List[object]:
+        with self._lock:
+            if self._outputs is None:
+                self._outputs = self._resolve()
+            return self._outputs
+
+    def _resolve(self) -> List[object]:
+        s = self.solver
+        with _on_stream(self.stream):
+            carry_rows, ys_rows = s._read_back(
+                self.carry_b, self.ys_b if self.track else None)
+        elapsed_ms = (time.perf_counter() - self.t0) * 1000.0
+        s._mark_ready(self.mega_key)
+        outputs: List[object] = []
+        for i, e in enumerate(self.entries):
+            r = e["r"]
+            trace = r["trace"] or NULL_TRACE
+            trace.record(
+                "megabatch", self.t_starts[i], trace.now(),
+                slot=i, slots=self.B_pad, occupied=self.B,
+            )
+            carry_i = tuple(x[i] for x in carry_rows)
+            ys_i = ys_rows[i] if ys_rows is not None else None
+            try:
+                retried = s._maybe_retry_exhausted(
+                    carry_i, e["est_dims"], e["full_dims"], e["full_nr"],
+                    r["raise_on_exhaust"],
+                    lambda r=r: s.solve(
+                        r["st"], existing_nodes=r["existing_nodes"],
+                        max_nodes=r["max_nodes"],
+                        track_assignments=r["track_assignments"],
+                        full_nr=True,
+                    ),
+                )
+            # per-slot boxed outcome: the exhausted slot's exception is
+            # returned in its slot so batchmates still get their results
+            except Exception as err:
+                outputs.append(err)
+                continue
+            if retried is not None:
+                outputs.append(retried)
+                continue
+            with trace.span("extract", slot=i):
+                outputs.append(s._extract(
+                    r["st"], carry_i, ys_i, r["existing_nodes"], e["NE"],
+                    elapsed_ms,
+                ))
+        return outputs
 
 
 def solve_tensors(st: SolveTensors, *, device=None, **kw) -> TpuSolveOutput:

@@ -198,6 +198,12 @@ def build_meta(prev: SolveResult, unavailable=None) -> _Meta:
     residual = np.zeros((len(nodes), len(res_names)), dtype=np.float64)
     sel_terms: Set[tuple] = set()
     preseated: Dict[str, str] = {}
+    # the pods a full fallback left unplaced, retained on its result (see
+    # _full): a result carries only their names, and a chain that dropped
+    # the objects here would lose them at its next full re-solve
+    unplaced = {n: p for n, p in getattr(prev, "_warmstart_unplaced",
+                                         {}).items()
+                if n in prev.infeasible}
     total = 0
     for i, n in enumerate(nodes):
         rem = n.remaining()
@@ -217,6 +223,7 @@ def build_meta(prev: SolveResult, unavailable=None) -> _Meta:
         res_names=res_names, res_pos=res_pos, residual=residual,
         sel_terms=sel_terms, total_pods=total,
         unavailable=set(unavailable or ()),
+        unplaced=unplaced,
         preseated=preseated,
     )
     return meta
@@ -503,6 +510,11 @@ def delta_solve(
             else:
                 all_pods.extend(n.pods)
         result = solve_full(all_pods, base, set(meta.unavailable))
+        # the chain restarts from this result with a rebuilt meta: keep the
+        # objects of the pods it left unplaced, so the next full re-solve
+        # (or a removal's re-offer) still sees them
+        result._warmstart_unplaced = {  # type: ignore[attr-defined]
+            p.name: p for p in all_pods if p.name in result.infeasible}
         return _finish(result, "full", keep_meta=False,
                        total=len(all_pods) - len(result.infeasible))
 

@@ -482,10 +482,26 @@ def test_fake_cloud_matches_reference(case):
     run_both(CLOUD_CASES[case])
 
 
+#: the serving series whose reference help text speaks of XLA compiles and
+#: cold tiers: the port keeps their names, types and labels and says what
+#: it measures instead (a warm is a signature's first run)
+REWORDED = ("karpenter_solver_compile_in_progress",
+            "karpenter_solver_compile_duration_seconds",
+            "karpenter_solver_cold_start_fallbacks_total",
+            "karpenter_solver_megabatch_slots",
+            "karpenter_solver_megabatch_flush_total",
+            "karpenter_solver_precompile_duration_seconds")
+
+
 def test_metric_help_text_is_the_reference():
     ref, port = package(REFERENCE).metrics, package(PORT).metrics
     for name, entry in port.INVENTORY.items():
-        assert ref.INVENTORY[name] == entry
+        if name in REWORDED:
+            assert ref.INVENTORY[name][:2] == entry[:2]
+            assert "XLA" not in entry[2] and "compiling behind" not in entry[2]
+        else:
+            assert ref.INVENTORY[name] == entry
+    assert set(REWORDED) <= set(port.INVENTORY)
     for name in COUNTED:
         assert name in port.INVENTORY
 

@@ -14,7 +14,9 @@ L2), at every base-pointer offset mod 16, and past the shared-memory cap
 (``chip_smoke.step_cases``) and at every offset.  The plain-PyTorch device
 programs give the same bits on ``cuda`` as on ``cpu``: the relax program
 (and its exp) and the consolidation screen.  The controllers' repack loop
-makes the same decisions on ``cuda`` as on ``cpu``.
+makes the same decisions on ``cuda`` as on ``cpu``, and so do the serving
+entry points: a megabatch flush, a constrained delta chain, and ``submit``
+(never served cold).
 """
 
 import numpy as np
@@ -236,3 +238,55 @@ def test_repack_controllers_cuda_equals_cpu(cuda):
         assert cons.SCREEN_PROGRAM.get(dev) >= 1
         runs[dev] = (keys, repack.cluster_plan(state), dict(state.bindings))
     assert runs["cuda"] == runs["cpu"]
+
+
+def test_serving_flush_cuda_equals_cpu(cuda):
+    """A flush of 8 serving requests (chip_smoke phase 10's requests): the
+    same plans on ``cuda`` as on ``cpu``, none served cold."""
+    import chip_smoke as cs
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    catalog = generate_catalog(full=False)
+    provs = [cs.provisioner()]
+    clients = [cs.serving_pods(c) for c in range(8)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sched = BatchScheduler(backend="auto", device=dev)
+        res, _ms = cs.flush(sched, clients, provs, catalog)
+        assert not any(r.served_cold or r.infeasible for r in res)
+        runs[dev] = [cs.plan(r) for r in res]
+    assert runs["cuda"] == runs["cpu"]
+
+
+def test_constrained_delta_chain_cuda_equals_cpu(cuda):
+    """A 10-step ``BatchScheduler.solve_delta`` chain whose adds are
+    zone-spread deployments (the scan tier on the device backend): the
+    same modes and final cluster on ``cuda`` as on ``cpu``."""
+    import chip_smoke as cs
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        modes, res, _walls, _base = cs.constrained_chain(dev, 2000, 10)
+        cs.check_seated(res, 2000)
+        runs[dev] = (modes, cs.chain_snapshot(res))
+    assert "scan" in runs["cuda"][0]
+    assert runs["cuda"] == runs["cpu"]
+
+
+def test_submit_on_cuda_never_served_cold(cuda):
+    """``submit`` on a ``cuda`` scheduler serves a first-seen signature on
+    the card: no result is served cold and no cold fallback is counted."""
+    import chip_smoke as cs
+    from karpenter_tpu_torch.metrics import SOLVER_COLD_FALLBACKS, Registry
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    catalog = generate_catalog(full=False)
+    reg = Registry()
+    sched = BatchScheduler(backend="auto", registry=reg)
+    for c in range(3):
+        pods = cs.serving_pods(c, n_groups=4 + 2 * c)
+        res = sched.submit(pods, [cs.provisioner()], catalog).result()
+        assert not res.served_cold and not res.infeasible
+    assert sum(reg.counter(SOLVER_COLD_FALLBACKS).values.values()) == 0
