@@ -52,9 +52,9 @@ no result):
    the limit held; (b) on the config-4 repack fleet: the consolidation
    evaluation's screen step at 5,000 nodes (compat rows, one screen of
    every single and structured subset on the card), one full
-   deprovisioning reconcile at 300 nodes (the screen on the card, a
+   deprovisioning reconcile at 200 nodes (the screen on the card, a
    proposed action executed, the fleet settled, a warm reconcile), and
-   the ladder driven to convergence at 200 nodes (no pod pending, every
+   the ladder driven to convergence at 150 nodes (no pod pending, every
    pod bound once, no node over its allocatable, a lower cost); (c) a
    100-node fleet driven to convergence on ``cuda`` and on ``cpu``: equal
    actions, final cluster and bindings.  The sizes are cut from the
@@ -76,13 +76,35 @@ no result):
     modes, fallbacks, the final cost within 1.02 of a fresh solve; (d) 20
     ``BatchScheduler.solve_delta`` steps on the device backend from the
     same base, each adding one zone-spread deployment (the scan tier), on
-    ``cuda`` and on ``cpu``: the same modes and final cluster.
+    ``cuda`` and on ``cpu``: the same modes and final cluster;
+11. gangs and resilience — (a) ``gang-hier-100k``: the slice's 100,000
+    pods plus 32 gangs of 16 members (1 cpu, 0.5 GiB), one gang doomed by
+    a member pinned to ``zone-none`` and one short roster (12 of 16),
+    solved like the slice (limit at 99% of this batch's own buy):
+    hierarchical routing, one ``price_step_scores`` launch per price
+    iteration, the limit held, every gang all or none with the typed
+    reason, both doomed gangs retracted; (b) the reference bench's
+    ``measure_gang`` on ``cuda`` (atomicity in 4 variants, co-location
+    packing against ``KT_GANG=0``, the gang-free latency ratio), and a
+    gang-bearing hierarchical batch on ``cuda`` and ``cpu`` (equal plans);
+    (c) ``device_hang@fence`` injected into a fresh ``auto`` scheduler
+    (the batch served by a host tier, one hang counted, the probe
+    recovering the card, which then answers as an unfaulted scheduler
+    does), and a real 5 s stall of the card under a 2 s guard (a hang
+    raised, the tier latched, healthy again only after the stall drained);
+    (d) the native tier's ``g++`` build, ``backend="native"`` and the
+    ``auto`` backend through ``ProvisioningController``.
 
-Launch counts (the hand-written kernels', and the relax and screen
-programs' runs) are zeroed just before each path is driven and read just
-after; no hand-written kernel is on the relax, consolidation, repack,
+After every phase but 11(c) the run checks that no device hang was
+counted, no solve was served degraded, every scheduler's guard is healthy
+and no warning was trapped, and prints its guarded device calls' longest
+wall against its budget (a ``guard`` line).  Launch counts (the
+hand-written kernels', and the relax and screen programs' runs) are
+zeroed just before each path is driven and read just after; no
+hand-written kernel is on the relax, consolidation, repack,
 serving-request or delta path, so their kernel counts read 0 there (the
-kernel table adds phase 10(b)'s launches to the slice's).  The last two lines are the kernel table (``{"kernels": [...]}``) and
+kernel table adds phase 10(b)'s and 11(a)'s launches to the slice's).
+The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -205,7 +227,12 @@ def limited_solve(device, pods, catalog):
     it bought.  Returns (scheduler, tensors, limit, free, limited, stats,
     limited-solve wall ms, launches per kernel in the limited solve)."""
     from karpenter_tpu_torch import kernels
-    from karpenter_tpu_torch.metrics import HIER_SOLVES, RELAX_DURATION
+    from karpenter_tpu_torch.metrics import (
+        GANG_DURATION,
+        GANG_GANGS,
+        HIER_SOLVES,
+        RELAX_DURATION,
+    )
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
 
     sched = BatchScheduler(backend="auto", device=device)
@@ -219,6 +246,8 @@ def limited_solve(device, pods, catalog):
         {"path": "hierarchical"})
     relax_before = _outcomes(sched.registry)
     relax_s0 = _hist_sum(sched.registry, RELAX_DURATION)
+    gang_s0 = _hist_sum(sched.registry, GANG_DURATION)
+    gangs0 = dict(sched.registry.counter(GANG_GANGS).values)
     kernels.reset_counts()
     t0 = time.perf_counter()
     res = sched.solve(pods, [provisioner(limit)], catalog)
@@ -237,6 +266,13 @@ def limited_solve(device, pods, catalog):
                                _outcomes(sched.registry).items()}
     stats["relax_ms"] = (_hist_sum(sched.registry, RELAX_DURATION)
                          - relax_s0) * 1000.0
+    # the gang epilogue of the limited solve (0 ms and no outcome for a
+    # gang-free batch)
+    stats["gang_ms"] = (_hist_sum(sched.registry, GANG_DURATION)
+                        - gang_s0) * 1000.0
+    stats["gang_outcomes"] = {
+        dict(k)["outcome"]: v - gangs0.get(k, 0.0) for k, v in
+        sched.registry.counter(GANG_GANGS).values.items()}
     check(stats["relax_outcomes"]["skipped"] == 1
           and sum(stats["relax_outcomes"].values()) == 1,
           "the limited solve's relax rung did not skip")
@@ -1184,8 +1220,9 @@ def phase_consolidation():
 #: the card the port's what-if solves are launch-bound (about 10 s for a
 #: what-if over 240 of 300 nodes), so a full evaluation at 5,000 nodes
 #: does not fit this script's time: the screen step runs at 5,000, the
-#: rest at these sizes (PERF.md §4)
-REPACK_SIZES = {"screen": 5000, "reconcile": 300, "converge": 200,
+#: rest at these sizes, cut again (from 300 and 200) when phase 11 came in
+#: (PERF.md §4)
+REPACK_SIZES = {"screen": 5000, "reconcile": 200, "converge": 150,
                 "parity": 100}
 
 
@@ -1823,6 +1860,551 @@ def phase_serving(limit, slice_res):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the device guard's bookkeeping (every phase) and phase 11
+# ---------------------------------------------------------------------------
+
+
+#: (phase, budget s, wall s) of every guarded device call, and the
+#: (registry, guard) of every ``BatchScheduler`` this run builds
+GUARDED: list = []
+SCHEDULERS: list = []
+PHASE = ["startup"]
+
+
+def install_guard_watch() -> None:
+    """Time every guarded device call against its budget, and keep each
+    scheduler's registry and guard, so each phase can be read for hangs,
+    degraded solves and the margin of its guarded calls."""
+    from karpenter_tpu_torch.solver import guard, scheduler
+
+    init = scheduler.BatchScheduler.__init__
+    run = guard.DeviceGuard._run
+
+    def tracked(self, *a, **kw):
+        init(self, *a, **kw)
+        SCHEDULERS.append((self.registry, self._guard))
+
+    def timed(self, timeout_s, fn, args, kwargs):
+        t0 = time.perf_counter()
+        try:
+            return run(self, timeout_s, fn, args, kwargs)
+        finally:
+            if self.enabled and timeout_s > 0:
+                GUARDED.append((PHASE[0], timeout_s,
+                                time.perf_counter() - t0))
+
+    scheduler.BatchScheduler.__init__ = tracked
+    guard.DeviceGuard._run = timed
+
+
+def guard_clean(after: str) -> None:
+    """After a phase: no hang counted, no solve degraded and every guard
+    healthy on every scheduler built so far, no warning trapped; prints
+    the phase's guarded calls against their budgets."""
+    from karpenter_tpu_torch import metrics
+
+    regs = {id(r): r for r, _g in SCHEDULERS}
+    regs[id(metrics.registry)] = metrics.registry
+    degraded = sum(sum(r.counter(metrics.SOLVER_DEGRADED_SOLVES)
+                       .values.values()) for r in regs.values())
+    hangs = sum(r.counter(metrics.SOLVER_DEVICE_HANGS).get()
+                for r in regs.values())
+    unhealthy = sum(1 for _r, g in SCHEDULERS if not g.healthy)
+    check(degraded == 0 and hangs == 0 and unhealthy == 0,
+          f"after {after}: {hangs} device hangs, {degraded} degraded "
+          f"solves, {unhealthy} unhealthy guards")
+    check(not FAULTS.records, f"the port fell back: {FAULTS.records}")
+    calls = [(b, w) for ph, b, w in GUARDED if ph == after]
+    worst = max(calls, key=lambda c: c[1] / c[0]) if calls else None
+    emit("guard", after=after, schedulers=len(SCHEDULERS),
+         degraded_solves=degraded, device_hangs=hangs,
+         guarded_calls=len(calls),
+         max_wall_s=worst[1] if worst else None,
+         its_budget_s=worst[0] if worst else None,
+         min_margin_s=min((b - w for b, w in calls), default=None))
+
+
+#: phase 11's sizes: the slice's 40 x 2,500 pods plus 32 gangs of 16
+#: members (the reference bench's ``measure_gang`` member), and that
+#: bench's 9 paired latency samples
+GANGS = {"gangs": 32, "size": 16, "bench_pairs": 9}
+
+
+def gang_member(gid: str, i: int, size: int, cpu: float = 1.0, sel=None):
+    """One gang member: ``measure_gang``'s shape (1 cpu, 0.5 GiB)."""
+    from karpenter_tpu_torch.models.pod import PodSpec
+
+    return PodSpec(name=f"{gid}-m{i}", labels={"app": gid},
+                   requests={"cpu": cpu, "memory": 0.5 * GIB},
+                   node_selector=dict(sel or {}), owner_key=gid,
+                   gang_id=gid, gang_size=size)
+
+
+def gang_batch(nd: int, per: int, n_gangs: int, size: int = 16,
+               tag: str = "h"):
+    """``deployments(nd, per)`` plus ``n_gangs`` gangs of ``size``, one gang
+    doomed by a member pinned to ``zone-none``, and one short roster (3/4
+    of its declared members).  Returns (pods, {gang id: members})."""
+    gangs = {f"train{g}": [gang_member(f"train{g}", i, size)
+                           for i in range(size)] for g in range(n_gangs)}
+    doomed = [gang_member("doomed", i, size) for i in range(size)]
+    doomed[size // 2] = gang_member("doomed", size // 2, size,
+                                    sel={ZONE: "zone-none"})
+    gangs["doomed"] = doomed
+    gangs["short"] = [gang_member("short", i, size)
+                      for i in range(size * 3 // 4)]
+    pods = deployments(nd, per, tag)
+    for members in gangs.values():
+        pods += members
+    return pods, gangs
+
+
+def gang_audit(res, gangs) -> dict:
+    """All-or-nothing over ``gangs``: a partial gang is a violation, a
+    retracted member without the typed reason is untyped."""
+    from karpenter_tpu_torch.gang import is_gang_reason
+
+    out = dict(placed=[], retracted=[], violations=0, untyped=0)
+    for gid, members in gangs.items():
+        seated = [p for p in members if p.name in res.assignments]
+        if seated and len(seated) != len(members):
+            out["violations"] += 1
+        elif seated:
+            out["placed"].append(gid)
+        else:
+            out["retracted"].append(gid)
+            if not all(is_gang_reason(res.infeasible.get(p.name, ""))
+                       for p in members):
+                out["untyped"] += 1
+    return out
+
+
+def gang_hier_100k():
+    """(a): the slice's 100,000 pods plus the gangs, limited, through
+    ``BatchScheduler(backend="auto")`` on the card, from names at 1000 (a
+    plan depends on the node-name counter through coalescing's order)."""
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+
+    catalog = generate_catalog(full=True)
+    pods, gangs = gang_batch(40, 2500, GANGS["gangs"], GANGS["size"])
+    names_from()
+    t0 = time.perf_counter()
+    (_sched, st, limit, free, res, stats, wall_ms, launches,
+     shipped) = limited_solve(None, pods, catalog)
+    check(launches["price_step_score"] >= 1
+          and launches["price_step_score"] == stats["price_iters"],
+          "gang-hier-100k: price_step_score launches != price iterations")
+    check(launches["packed_score"] == 0,
+          "gang-hier-100k launched the price-row entry")
+    audit = gang_audit(res, gangs)
+    check(audit["violations"] == 0 and audit["untyped"] == 0,
+          f"gang-hier-100k: {audit['violations']} partial gangs, "
+          f"{audit['untyped']} untyped retractions")
+    check({"doomed", "short"} <= set(audit["retracted"]),
+          "gang-hier-100k: a doomed gang was not retracted")
+    n_train = sum(1 for g in audit["placed"] + audit["retracted"]
+                  if g.startswith("train"))
+    check(n_train == GANGS["gangs"], "a training gang was neither placed "
+          "nor retracted")
+    return launches, dict(
+        pods=len(pods), gangs=len(gangs), groups=st.G,
+        blocks=stats["blocks"], price_iters=stats["price_iters"],
+        wall_ms=wall_ms, tensorize_ms=stats["tensorize_ms"],
+        partition_ms=stats["partition_ms"], entries_ms=stats["entries_ms"],
+        wave_ms=stats["wave_ms"], score_ms=stats["score_ms"],
+        repair_ms=stats["repair_ms"], repair_pods=stats["repair_pods"],
+        hier_total_ms=stats["total_ms"], gang_epilogue_ms=stats["gang_ms"],
+        gang_outcomes=stats["gang_outcomes"],
+        trains_placed=sum(g.startswith("train") for g in audit["placed"]),
+        trains_retracted=sum(g.startswith("train")
+                             for g in audit["retracted"]),
+        retracted=audit["retracted"], atomicity_violations=0,
+        nodes=len(res.nodes), cost=res.new_node_cost,
+        infeasible=len(res.infeasible), cpu_limit=limit,
+        cpu_shipped=shipped, free_nodes=len(free.nodes),
+        launches=launches, phase_s=time.perf_counter() - t0)
+
+
+def gang_bench(device=None) -> dict:
+    """(b): the reference bench's ``measure_gang`` through the port on
+    ``device`` (the bench's ``backend="tpu"``)."""
+    import dataclasses
+    import gc
+
+    from karpenter_tpu_torch.models.catalog import DEFAULT_ZONES, generate_catalog
+    from karpenter_tpu_torch.models.pod import PodSpec
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+    from karpenter_tpu_torch.solver.types import SimNode
+
+    catalog = generate_catalog(full=False)
+    provs = [provisioner()]
+
+    def sched():
+        return BatchScheduler(backend="tpu", device=device)
+
+    # (a) atomicity under engineered infeasibility, 4 variants
+    tally = dict(violations=0, untyped=0, retracted=0, placed=0)
+    for v in range(4):
+        ok = [gang_member("bg-ok", i, 4) for i in range(4)]
+        doomed = [gang_member("bg-pin", i, 4 + v) for i in range(4 + v)]
+        doomed[v % len(doomed)] = dataclasses.replace(
+            doomed[v % len(doomed)], node_selector={ZONE: "zone-none"})
+        short = [gang_member("bg-short", i, 8) for i in range(3 + v)]
+        singles = [PodSpec(name=f"bs{v}-{i}", labels={"app": "bs"},
+                           requests={"cpu": 0.5, "memory": 0.5 * GIB},
+                           owner_key="bs") for i in range(8)]
+        res = sched().solve(ok + doomed + singles + short, provs, catalog)
+        audit = gang_audit(res, {"ok": ok, "pin": doomed, "short": short})
+        tally["violations"] += audit["violations"]
+        tally["untyped"] += audit["untyped"]
+        tally["retracted"] += len(audit["retracted"])
+        tally["placed"] += len(audit["placed"])
+
+    # (b) co-locatable spread: 2 free cpus on one existing node per zone
+    def spread_cluster():
+        nodes = []
+        for zi, z in enumerate(DEFAULT_ZONES):
+            n = SimNode(
+                instance_type="m5.xlarge", provisioner="default", zone=z,
+                capacity_type="on-demand", price=0.192,
+                allocatable={"cpu": 4.0, "memory": 14.8 * GIB, "pods": 110.0},
+                existing=True, name=f"gsp{zi}")
+            n.stamp_labels()
+            n.pods.append(PodSpec(
+                name=f"gsp{zi}-fill", labels={"app": "fill"},
+                requests={"cpu": 2.0, "memory": 2.0 * GIB},
+                owner_key="fill"))
+            nodes.append(n)
+        return nodes
+
+    gang6 = [gang_member("bg-pack", i, 6) for i in range(6)]
+
+    def zones_of(res):
+        by_node = {n.name: n.zone
+                   for n in list(res.existing_nodes) + list(res.nodes)}
+        return {by_node[res.assignments[p.name]] for p in gang6
+                if p.name in res.assignments}
+
+    os.environ["KT_GANG"] = "0"
+    try:
+        naive = sched().solve(gang6, provs, catalog,
+                              existing_nodes=spread_cluster())
+    finally:
+        os.environ.pop("KT_GANG", None)
+    packed = sched().solve(gang6, provs, catalog,
+                           existing_nodes=spread_cluster())
+    spread_naive, spread_packed = len(zones_of(naive)), len(zones_of(packed))
+    packed_whole = all(p.name in packed.assignments for p in gang6)
+
+    # (c) gang-free latency, armed against KT_GANG=0: paired median of
+    # best-of-3 walls
+    free_pods = [PodSpec(name=f"gf-{d}-{i}", labels={"app": f"gfd{d}"},
+                         requests={"cpu": 0.25 * (1 + d % 3),
+                                   "memory": (0.5 + d % 4) * GIB},
+                         owner_key=f"gfd{d}")
+                 for d in range(8) for i in range(40)]
+    s = sched()
+    s.solve(free_pods, provs, catalog)  # warm
+
+    def best_wall():
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            s.solve(free_pods, provs, catalog)
+            best = min(best, (time.perf_counter() - t0) * 1000.0)
+        return best
+
+    def off_wall():
+        os.environ["KT_GANG"] = "0"
+        try:
+            return best_wall()
+        finally:
+            os.environ.pop("KT_GANG", None)
+
+    ratios = []
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        for k in range(GANGS["bench_pairs"]):
+            gc.collect()
+            if k % 2 == 0:
+                on_ms, off_ms = best_wall(), off_wall()
+            else:
+                off_ms = off_wall()
+                on_ms = best_wall()
+            ratios.append(on_ms / max(off_ms, 1e-9))
+    finally:
+        if gc_was:
+            gc.enable()
+    return dict(
+        gang_atomicity_violations=tally["violations"],
+        gang_retracted_untyped=tally["untyped"],
+        gang_gangs_retracted=tally["retracted"],
+        gang_gangs_placed=tally["placed"],
+        gang_spread_naive_zones=spread_naive,
+        gang_spread_packed_zones=spread_packed,
+        gang_pack_whole=packed_whole,
+        gang_latency_ratio=statistics.median(ratios),
+        gang_latency_ratios=ratios,
+        gang_latency_ratio_max=1.10)
+
+
+def gang_hier_parity(nd: int = 8, per: int = 250, n_gangs: int = 4):
+    """(b): a small gang-bearing hierarchical batch with a binding limit on
+    ``cuda`` and on ``cpu``: the plans must agree."""
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+
+    catalog = generate_catalog(full=True)
+    pods, gangs = gang_batch(nd, per, n_gangs, tag="gp")
+    old = os.environ.get("KT_HIER_THRESHOLD")
+    os.environ["KT_HIER_THRESHOLD"] = str(len(pods))
+    try:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            names_from()
+            t0 = time.perf_counter()
+            (_s, _st, limit, _free, res, stats, _w, _l,
+             _shipped) = limited_solve(dev, pods, catalog)
+            runs[dev] = (limit, res, stats, time.perf_counter() - t0)
+    finally:
+        if old is None:
+            os.environ.pop("KT_HIER_THRESHOLD", None)
+        else:
+            os.environ["KT_HIER_THRESHOLD"] = old
+    (lg, rg, sg, tg), (lc, rc, _sc, tc) = runs["cuda"], runs["cpu"]
+    audits = [gang_audit(r, gangs) for r in (rg, rc)]
+    check(all(a["violations"] == 0 and a["untyped"] == 0 for a in audits),
+          "gang parity batch: a partial or untyped gang")
+    equal = plan(rg) == plan(rc)
+    tie = placements_tie(rg, rc)
+    check(lg == lc and (equal or tie)
+          and rg.infeasible == rc.infeasible,
+          "gang parity batch: cuda and cpu disagree")
+    return dict(pods=len(pods), gangs=len(gangs), cpu_limit=lg,
+                plans_equal=equal, placements_tie=tie,
+                retracted=audits[0]["retracted"],
+                price_iters=sg["price_iters"], seconds=[tg, tc])
+
+
+def degraded_batch():
+    """``TestSchedulerDegradation``'s batch: 300 pods of 0.5 cpu, above the
+    256-pod oracle route."""
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.models.pod import PodSpec
+
+    pods = [PodSpec(name=f"p{i}", requests={"cpu": 0.5}, owner_key="d")
+            for i in range(300)]
+    return pods, [provisioner()], generate_catalog(full=False)
+
+
+def injected_hang() -> dict:
+    """(c)1: ``KT_FAULTS="device_hang@fence:at=1"`` set only while a fresh
+    ``auto`` scheduler is built: its first solve hangs at the read-back,
+    is served by a host tier, and after the probe answers the card serves
+    the batch again as an unfaulted scheduler does."""
+    from karpenter_tpu_torch import metrics
+    from karpenter_tpu_torch.metrics import Registry
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    pods, provs, catalog = degraded_batch()
+    reg = Registry()
+    injected0 = metrics.registry.counter(metrics.FAULTS_INJECTED).get(
+        {"kind": "device_hang", "site": "fence"})
+    os.environ["KT_FAULTS"] = "device_hang@fence:at=1"
+    try:
+        sched = BatchScheduler(backend="auto", registry=reg)
+    finally:
+        os.environ.pop("KT_FAULTS", None)
+    sched._guard.probe_interval_s = 0.25
+    names_from()
+    t0 = time.perf_counter()
+    res = sched.solve(pods, provs, catalog)
+    degraded_ms = (time.perf_counter() - t0) * 1000.0
+    injected = metrics.registry.counter(metrics.FAULTS_INJECTED).get(
+        {"kind": "device_hang", "site": "fence"}) - injected0
+    hangs = reg.counter(metrics.SOLVER_DEVICE_HANGS).get()
+    healthy_after = reg.gauge(metrics.SOLVER_DEVICE_HEALTHY).get()
+    degraded = {dict(k)["backend"]: v for k, v in
+                reg.counter(metrics.SOLVER_DEGRADED_SOLVES).values.items()}
+    check(len(res.assignments) == len(pods) and not res.infeasible,
+          "the degraded serve left pods unseated")
+    check(hangs == 1 and healthy_after == 0 and injected == 1
+          and sum(degraded.values()) == 1,
+          f"injected hang: hangs {hangs}, healthy {healthy_after}, "
+          f"injected {injected}, degraded {degraded}")
+    tier = next(b for b, v in degraded.items() if v == 1)
+    deadline = time.perf_counter() + 60.0
+    while not sched._guard.healthy and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    recovery_s = time.perf_counter() - t0
+    check(sched._guard.healthy and reg.gauge(
+        metrics.SOLVER_DEVICE_HEALTHY).get() == 1,
+        "the probe did not recover the device tier")
+    names_from()
+    again = sched.solve(pods, provs, catalog)
+    names_from()
+    clean = BatchScheduler(backend="auto", registry=Registry()).solve(
+        pods, provs, catalog)
+    check(sum(reg.counter(metrics.SOLVER_DEGRADED_SOLVES).values.values())
+          == 1, "the recovered solve was served by a host tier")
+    check(plan(again) == plan(clean)
+          and again.assignments == clean.assignments,
+          "the recovered solve differs from an unfaulted cuda solve")
+    sched.stop_warms()
+    return dict(degraded_tier=tier, degraded_ms=degraded_ms,
+                degraded_nodes=len(res.nodes),
+                degraded_cost=res.new_node_cost, device_hangs=hangs,
+                healthy_after_hang=healthy_after, injected=injected,
+                hang_to_recovery_s=recovery_s,
+                recovered_nodes=len(again.nodes),
+                recovered_cost=again.new_node_cost,
+                recovered_equals_unfaulted=True)
+
+
+def real_stall(stall_s: float = 5.0, timeout_s: float = 2.0) -> dict:
+    """(c)2: a guard on ``cuda`` with a short deadline runs a call that
+    spins the card for ``stall_s`` and then reads back: it must raise
+    ``DeviceHang``, latch unhealthy, and turn healthy only after the
+    stall drained (the probe is an op on the same card)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.guard import DeviceGuard, DeviceHang
+
+    # cycles per second of torch.cuda._sleep, from a short calibration
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    torch.cuda._sleep(100_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    cycles_per_s = 100_000_000 / (a.elapsed_time(b) / 1000.0)
+    events = []
+    done = {}
+
+    def spin():
+        torch.cuda._sleep(int(cycles_per_s * stall_s))
+        torch.zeros(1, device="cuda").sum().item()
+        done["t"] = time.perf_counter()
+
+    g = DeviceGuard(timeout_s=timeout_s, probe_interval_s=0.1,
+                    device="cuda",
+                    on_health_change=lambda h: events.append(
+                        (h, time.perf_counter())))
+    t0 = time.perf_counter()
+    try:
+        g.run(spin)
+        raised = False
+    except DeviceHang:
+        raised = True
+    raised_s = time.perf_counter() - t0
+    latched = not g.healthy
+    deadline = time.perf_counter() + 60.0
+    while not g.healthy and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    g.stop()
+    torch.cuda.synchronize()
+    healthy_at = next((t for h, t in events if h), None)
+    check(raised and latched and healthy_at is not None
+          and "t" in done,
+          f"real stall: raised {raised}, latched {latched}, "
+          f"recovered {healthy_at is not None}")
+    check(healthy_at >= done["t"] - 0.05,
+          "the probe answered before the stall drained")
+    return dict(stall_s=stall_s, timeout_s=timeout_s, raised_after_s=raised_s,
+                stall_drained_s=done["t"] - t0,
+                healthy_after_s=healthy_at - t0,
+                events=[h for h, _t in events])
+
+
+def native_tier(catalog_small) -> dict:
+    """(d): the native tier's build on this machine, ``backend="native"``
+    on the 300-pod batch, and ``TestAutoBackendE2E``'s path through
+    ``ProvisioningController``."""
+    from karpenter_tpu_torch.cloud.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.provisioning import (
+        ProvisioningController,
+    )
+    from karpenter_tpu_torch.controllers.state import ClusterState
+    from karpenter_tpu_torch.models.pod import PodSpec
+    from karpenter_tpu_torch.solver import native
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    load_s = time.perf_counter() - t0
+    check(ok, "the native tier did not build")
+    pods, provs, catalog = degraded_batch()
+    sched = BatchScheduler(backend="native")
+    sched.solve(pods, provs, catalog)
+    t1 = time.perf_counter()
+    res = sched.solve(pods, provs, catalog)
+    solve_ms = (time.perf_counter() - t1) * 1000.0
+    check(len(res.assignments) == len(pods) and not res.infeasible,
+          "backend=native left pods unseated")
+    clock = FakeClock()
+    state = ClusterState(clock=clock)
+    cloud = FakeCloudProvider(catalog_small, clock=clock)
+    ctrl = ProvisioningController(
+        state, cloud, scheduler=BatchScheduler(backend="auto"), clock=clock)
+    state.apply_provisioner(provisioner())
+    for i in range(20):
+        state.add_pod(PodSpec(name=f"p{i}", requests={"cpu": 1.0},
+                              owner_key="d"))
+    ctrl.reconcile()
+    clock.advance(1.5)
+    e2e = ctrl.reconcile()
+    check(e2e is not None and not state.pending_pods()
+          and all(p in state.bindings for p in state.pods),
+          "the auto backend end to end left pods pending")
+    return dict(available=ok, version=native.version(),
+                build_s=native.build_s, load_s=load_s,
+                native_solve_ms=solve_ms, native_nodes=len(res.nodes),
+                native_cost=res.new_node_cost,
+                auto_e2e_nodes=len(state.nodes))
+
+
+def phase_gangs():
+    """Phase 11: (a) gang-hier-100k, (b) the gang bench and the gang
+    parity batch, (c) an injected and a real device hang, (d) the native
+    tier.  Returns (a)'s kernel launches."""
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+
+    t_phase = time.perf_counter()
+    PHASE[0] = "gangs"
+    launches, hier = gang_hier_100k()
+    emit("gangs_hier_100k", **hier)
+    t0 = time.perf_counter()
+    bench = gang_bench()
+    check(bench["gang_atomicity_violations"] == 0
+          and bench["gang_retracted_untyped"] == 0,
+          "gang bench: a partial or untyped gang")
+    check(bench["gang_spread_packed_zones"] < bench["gang_spread_naive_zones"]
+          and bench["gang_pack_whole"], "gang bench: packing did not pack")
+    emit("gangs_bench", **bench, seconds=time.perf_counter() - t0)
+    emit("gangs_parity", **gang_hier_parity())
+    emit("gangs_native", **native_tier(generate_catalog(full=False)))
+    guard_clean("gangs")
+    # (c): the one part of the run where hangs, degraded solves and the
+    # guard's warnings are expected; its schedulers leave the watch after
+    PHASE[0] = "hang"
+    n_sched, n_faults = len(SCHEDULERS), len(FAULTS.records)
+    hang = injected_hang()
+    stall = real_stall()
+    expected = FAULTS.records[n_faults:]
+    check(all("device tier UNHEALTHY" in r or "flight recorder dump" in r
+              for r in expected), f"unexpected warnings: {expected}")
+    del FAULTS.records[n_faults:]
+    del SCHEDULERS[n_sched:]
+    calls = [(b, w) for ph, b, w in GUARDED if ph == "hang"]
+    emit("gangs_hang", injected=hang, real_stall=stall,
+         trapped_warnings=len(expected), guarded_calls=len(calls),
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1842,17 +2424,28 @@ def main() -> int:
     from karpenter_tpu_torch import kernels
 
     logging.getLogger("karpenter_tpu_torch").addHandler(FAULTS)
+    install_guard_watch()
+
+    def run(name, fn, *args):
+        PHASE[0] = name
+        out = fn(*args)
+        guard_clean(name)
+        return out
+
     try:
-        smi = phase_device()
-        phase_build()
-        max_err = phase_kernel()
-        st, stats, launches, limit, slice_res = phase_slice(40, 2500)
-        timing = phase_timing(st, stats)
-        phase_parity(8, 250)
-        phase_relax()
-        phase_consolidation()
-        phase_controllers(limit, slice_res, deployments(40, 2500))
-        flush_launches = phase_serving(limit, slice_res)
+        smi = run("device", phase_device)
+        run("build", phase_build)
+        max_err = run("kernel", phase_kernel)
+        st, stats, launches, limit, slice_res = run("slice", phase_slice,
+                                                    40, 2500)
+        timing = run("timing", phase_timing, st, stats)
+        run("parity", phase_parity, 8, 250)
+        run("relax", phase_relax)
+        run("consolidation", phase_consolidation)
+        run("controllers", phase_controllers, limit, slice_res,
+            deployments(40, 2500))
+        flush_launches = run("serving", phase_serving, limit, slice_res)
+        gang_launches = phase_gangs()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1862,7 +2455,8 @@ def main() -> int:
         "route": "cuda",
         "source": kernel.repo_path,
         "replaces": replaces,
-        "launches": launches[name] + flush_launches[name],
+        "launches": (launches[name] + flush_launches[name]
+                     + gang_launches[name]),
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],

@@ -83,9 +83,18 @@ def water_fill(current: torch.Tensor, cap: torch.Tensor, total: torch.Tensor,
     take_back = torch.where(trim <= excess, pos, 0.0)
     alloc = (rev - take_back).flip(-1)
     shortfall = torch.clamp(tot_z - alloc.sum(dim=-1, keepdim=True), min=0.0)
-    slack = torch.where(capf - alloc > 0, 1.0, 0.0)
-    fill = torch.cumsum(slack, dim=-1)
-    alloc = alloc + torch.where(fill <= shortfall, slack, 0.0)
+    # top-up order: zones with room for a whole unit first, then zones with
+    # only a fractional remainder (skew_band_fill's band headroom is
+    # fractional; a unit given to a zone whose headroom is below one lifts
+    # it over the band top while a zone below the band still has room —
+    # the reference takes zone order alone here, ROADMAP Queue C2)
+    room = capf - alloc
+    whole = torch.where(room >= 1.0 - 1e-4, 1.0, 0.0)
+    frac = torch.where((room > 0) & (whole == 0), 1.0, 0.0)
+    fill_w = torch.cumsum(whole, dim=-1)
+    fill_f = torch.cumsum(frac, dim=-1) + whole.sum(dim=-1, keepdim=True)
+    alloc = (alloc + torch.where(fill_w <= shortfall, whole, 0.0)
+             + torch.where(fill_f <= shortfall, frac, 0.0))
     return torch.clamp(alloc, min=0.0).to(torch.int32)
 
 

@@ -30,8 +30,13 @@ bf16 price row in) and :func:`price_step_scores` (the price loop's step:
 feasibility, base prices and owners resident on the device, the adjusted
 bf16 row built by the kernel from ``exp(lam)``, one ``[2, G]`` buffer out).
 
-Unlike the reference, a failing wave is not caught here: there is no
-compile to wait for and no hang guard, so a fault surfaces to the caller.
+Every block wave runs through the scheduler's device hang guard with
+``1 / (1 + KT_HIER_PRICE_ITERS)`` of its deadline, so a wedged device
+latches in the time of one flat solve.  A wave that trips the guard counts
+``fallback_degraded`` and hands the batch back to the scheduler, whose flat
+path serves it from a host tier while the device is latched unhealthy.
+Unlike the reference, no other wave failure is caught here: there is no
+compile to wait for, so a fault surfaces to the caller.
 """
 
 from __future__ import annotations
@@ -586,7 +591,10 @@ def _solve_hierarchical(
     entries_ms = (time.perf_counter() - t_ent0) * 1000.0
 
     # ---- block waves ----------------------------------------------------
+    # each wave runs under the hang guard with its share of the deadline
+    guard = getattr(scheduler, "_guard", None)
     price_budget = hier_price_iters()
+    wave_frac = 1.0 / (1.0 + price_budget)
     dispatches = 0
     wave_ms: List[float] = []
     score_ms: List[float] = []
@@ -594,65 +602,77 @@ def _solve_hierarchical(
     def wave(wave_entries):
         nonlocal dispatches
         tw = time.perf_counter()
-        outs = solver.solve_many_prepared(wave_entries)
+        if guard is not None and guard.enabled:
+            outs = guard.run_budgeted(solver.solve_many_prepared,
+                                      wave_entries, budget_frac=wave_frac)
+        else:
+            outs = solver.solve_many_prepared(wave_entries)
         dispatches += 1
         wave_ms.append((time.perf_counter() - tw) * 1000.0)
         return outs
+
+    from .guard import DeviceHang
 
     P = len(st.prov_names)
     limits = np.asarray(st.prov_limits, dtype=np.float64)
     iters_run = 0
     dev = solver.device
-    outs = wave(entries)
-
-    # ---- price ascent (fixed budget, mirror-descent schedule) ----------
     lam = np.zeros(P, dtype=np.float64)
     step: Optional[ScoreStep] = None
     score_setup_ms = 0.0
-    for t in range(price_budget):
-        usage = np.zeros((len(masks), P, st.R), dtype=np.float64)
-        for bi, out in enumerate(outs):
-            usage[bi] = _prov_usage(st, out.result.nodes, P)
-        v = _limit_violation(usage.sum(axis=0), limits)
-        hot = v > 1.0 + 1e-6
-        if not hot.any():
-            break
-        iters_run += 1
-        eta = float(mirror_eta(np.float32(t)))
-        lam = np.minimum(np.where(hot, lam + eta * (v - 1.0),
-                                  lam * 0.5), 8.0)
-        want_hot = np.zeros(st.G, dtype=bool)
-        if st.C:
-            # packed hot path: which provisioner each group would buy NOW,
-            # under the adjusted prices — one fused launch on resident
-            # feasibility / base prices / owners (the card builds the
-            # adjusted bf16 price row), exp(lam) up, one buffer back
-            if step is None:
-                tsu = time.perf_counter()
-                step = ScoreStep(*score_inputs(st, base), P, dev)
-                score_setup_ms = (time.perf_counter() - tsu) * 1000.0
-            ts = time.perf_counter()
-            _cost, best = step(lam)
-            score_ms.append((time.perf_counter() - ts) * 1000.0)
-            prov_of_best = np.asarray(st.cand_prov)[best]
-            want_hot = hot[prov_of_best] & (_cost < 1e37)
-        contending = [
-            bi for bi in range(len(masks))
-            if usage[bi][hot].any() or want_hot[masks[bi]].any()
-        ]
-        if not contending:
-            break
-        # the re-solve takes the PADDED adjusted prices (3.0e38 rows stay)
-        adj_padded = price_adjusted(base[0]["cand_price"],
-                                    base[0]["cand_prov"], lam)
-        sub_entries, _ = build_block_entries(
-            solver, st, [masks[bi] for bi in contending],
-            [budgets[bi] for bi in contending], dims, base=base,
-            cand_price=adj_padded, trace=trace,
-        )
-        sub_outs = wave(sub_entries)
-        for bi, out in zip(contending, sub_outs):
-            outs[bi] = out
+    try:
+        outs = wave(entries)
+
+        # ---- price ascent (fixed budget, mirror-descent schedule) ------
+        for t in range(price_budget):
+            usage = np.zeros((len(masks), P, st.R), dtype=np.float64)
+            for bi, out in enumerate(outs):
+                usage[bi] = _prov_usage(st, out.result.nodes, P)
+            v = _limit_violation(usage.sum(axis=0), limits)
+            hot = v > 1.0 + 1e-6
+            if not hot.any():
+                break
+            iters_run += 1
+            eta = float(mirror_eta(np.float32(t)))
+            lam = np.minimum(np.where(hot, lam + eta * (v - 1.0),
+                                      lam * 0.5), 8.0)
+            want_hot = np.zeros(st.G, dtype=bool)
+            if st.C:
+                # packed hot path: which provisioner each group would buy NOW,
+                # under the adjusted prices — one fused launch on resident
+                # feasibility / base prices / owners (the card builds the
+                # adjusted bf16 price row), exp(lam) up, one buffer back
+                if step is None:
+                    tsu = time.perf_counter()
+                    step = ScoreStep(*score_inputs(st, base), P, dev)
+                    score_setup_ms = (time.perf_counter() - tsu) * 1000.0
+                ts = time.perf_counter()
+                _cost, best = step(lam)
+                score_ms.append((time.perf_counter() - ts) * 1000.0)
+                prov_of_best = np.asarray(st.cand_prov)[best]
+                want_hot = hot[prov_of_best] & (_cost < 1e37)
+            contending = [
+                bi for bi in range(len(masks))
+                if usage[bi][hot].any() or want_hot[masks[bi]].any()
+            ]
+            if not contending:
+                break
+            # the re-solve takes the PADDED adjusted prices (3.0e38 rows stay)
+            adj_padded = price_adjusted(base[0]["cand_price"],
+                                        base[0]["cand_prov"], lam)
+            sub_entries, _ = build_block_entries(
+                solver, st, [masks[bi] for bi in contending],
+                [budgets[bi] for bi in contending], dims, base=base,
+                cand_price=adj_padded, trace=trace,
+            )
+            sub_outs = wave(sub_entries)
+            for bi, out in zip(contending, sub_outs):
+                outs[bi] = out
+    except DeviceHang:
+        logger.warning("hierarchical block wave hit the hang guard; "
+                       "flat degradation ladder serves this batch")
+        _record(registry, "fallback_degraded")
+        return None
 
     # ---- merge ----------------------------------------------------------
     t_rep0 = time.perf_counter()

@@ -50,27 +50,46 @@ class _TopologyState:
         self.node: Dict[tuple, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
         self.ct: Dict[tuple, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
         self.total: Dict[tuple, int] = defaultdict(int)
+        # (selector table, label set) -> the table keys matching it: the
+        # pods of one deployment share their labels, so each distinct
+        # label set is matched against the table once per solve
+        self._matching: Dict[tuple, tuple] = {}
 
     def observe(self, pod: PodSpec, zone: str, node_name: str, selectors,
-                ct: str = "") -> None:
-        for key, sel in selectors.items():
-            if sel.matches(pod.labels):
-                self.zone[key][zone] += 1
-                self.node[key][node_name] += 1
-                if ct:
-                    self.ct[key][ct] += 1
-                self.total[key] += 1
+                ct: str = "", n: int = 1) -> None:
+        """Count ``n`` pods labelled like ``pod`` on one node."""
+        memo = (id(selectors), frozenset(pod.labels.items()))
+        keys = self._matching.get(memo)
+        if keys is None:
+            keys = self._matching[memo] = tuple(
+                key for key, sel in selectors.items()
+                if sel.matches(pod.labels))
+        for key in keys:
+            self.zone[key][zone] += n
+            self.node[key][node_name] += n
+            if ct:
+                self.ct[key][ct] += n
+            self.total[key] += n
 
 
 def _selector_table(pods: Sequence[PodSpec]) -> Dict[tuple, object]:
     out: Dict[tuple, object] = {}
+    # pods of one deployment share their selector objects: hash each
+    # (object, key, kind) once — an equal selector object adds nothing new
+    seen = set()
     for p in pods:
         for tsc in p.topology_spread:
             if tsc.hard:
-                out[(tsc.label_selector, tsc.topology_key, "spread")] = tsc.label_selector
+                mark = (id(tsc.label_selector), tsc.topology_key, "spread")
+                if mark not in seen:
+                    seen.add(mark)
+                    out[(tsc.label_selector, tsc.topology_key, "spread")] = tsc.label_selector
         for t in p.affinity_terms:
             kind = "anti" if t.anti else "affinity"
-            out[(t.label_selector, t.topology_key, kind)] = t.label_selector
+            mark = (id(t.label_selector), t.topology_key, kind)
+            if mark not in seen:
+                seen.add(mark)
+                out[(t.label_selector, t.topology_key, kind)] = t.label_selector
     return out
 
 
@@ -139,9 +158,15 @@ class _Solver:
                 {L.RESOURCE_CPU: cap.get(L.RESOURCE_CPU, 0.0),
                  L.RESOURCE_MEMORY: cap.get(L.RESOURCE_MEMORY, 0.0)},
             )
+            # one observe per distinct label set on the node
+            by_labels: Dict[frozenset, list] = {}
             for p in n.pods:
+                entry = by_labels.setdefault(frozenset(p.labels.items()),
+                                             [p, 0])
+                entry[1] += 1
+            for p, count in by_labels.values():
                 self.topo.observe(p, n.zone, n.name, self.selectors,
-                                  ct=n.capacity_type)
+                                  ct=n.capacity_type, n=count)
 
     # ---- per-(group,node-shape) caches --------------------------------
     def _node_sig(self, node: SimNode) -> tuple:

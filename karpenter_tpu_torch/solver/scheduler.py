@@ -1,16 +1,25 @@
 """Batch scheduler facade — routes pods to the device solve, the hierarchical
-solve or the CPU oracle.
+solve, the native C++ tier or the CPU oracle.
 
 The port of the reference package's ``solver/scheduler.py``.
 ``BatchScheduler.solve`` runs the first wave, the preference-relaxation
 ladder, the OR-term waves, the residue waves, the capped-node reseat
-epilogue and the convex-relaxation rung (solver/relax.py).  ``_solve_once``
-routes a wave to the oracle (``auto`` batches of at most
-``NATIVE_BATCH_LIMIT`` pods, or any batch with a hard capacity-type
-spread), to the hierarchical solve (greenfield batches at/above
-``KT_HIER_THRESHOLD``), or to the flat device solve.  Pods the device solve
+epilogue, the convex-relaxation rung (solver/relax.py) and the gang
+all-or-nothing epilogue (gang/).  ``_solve_once`` routes a wave to the
+oracle (``auto`` batches of at most ``NATIVE_BATCH_LIMIT`` pods, or any
+batch with a hard capacity-type spread), to the hierarchical solve
+(greenfield batches at/above ``KT_HIER_THRESHOLD``), to the native C++ tier
+(``backend="native"``), or to the flat device solve.  Pods the device solve
 can't express are carved out and solved by the oracle against the device
 result's node set.
+
+Hang protection (solver/guard.py): under ``auto`` every device dispatch and
+read runs through :class:`DeviceGuard`.  A call that hangs past
+``KT_DEVICE_SOLVE_TIMEOUT_S`` latches the device tier unhealthy; that batch
+and every one after it are served from a host tier (``_degraded_fallback``:
+native when it can express the batch, else the oracle) until the guard's
+probe answers on the scheduler's device.  The forced ``tpu`` backend stays
+unguarded.
 
 Serving entry points, under the reference's names: ``submit`` (async
 dispatch: the first wave is enqueued and ``result()`` reads it back and
@@ -21,11 +30,11 @@ warm-start chain) and the warm API (``warm_startup``,
 ``precompile_buckets``, ``stop_warms``).  Eager PyTorch compiles nothing,
 so the reference's compile-behind workarounds are gone: every signature is
 served on the device the first time it is seen, ``served_cold`` stays
-False, and a flush that meets a new slot rung is dispatched batched.
+False, and a flush that meets a new slot rung is dispatched batched.  The
+host tiers serve a batch of the ``auto`` policy only while the device is
+latched unhealthy, never for a cold shape.
 
-Not in this port yet: the gang epilogue (a batch with gang pods raises
-``NotImplementedError``), the native C++ tier, the device hang guard (the
-collector dispatches and reads directly), and the mesh.
+Not in this port yet: the mesh.
 """
 
 from __future__ import annotations
@@ -37,8 +46,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from .. import gang as gangmod
 from ..device import resolve_device
-from ..gang import gang_enabled, has_gangs
 from ..metrics import (
     MEGABATCH_FLUSH,
     MEGABATCH_FLUSH_REASONS,
@@ -49,6 +58,9 @@ from ..metrics import (
     SOLVER_COLD_FALLBACKS,
     SOLVER_COMPILE_DURATION,
     SOLVER_COMPILE_IN_PROGRESS,
+    SOLVER_DEGRADED_SOLVES,
+    SOLVER_DEVICE_HANGS,
+    SOLVER_DEVICE_HEALTHY,
     TENSORIZE_CACHE_HITS,
     TENSORIZE_CACHE_MISSES,
     TENSORIZE_DURATION,
@@ -65,7 +77,9 @@ from ..models.tensorize import (
     device_inexpressible,
     tensorize,
 )
-from ..obs.trace import NULL_TRACE
+from ..obs import tracer_for
+from ..obs.trace import NULL_TRACE, Tracer
+from .guard import DeviceGuard, DeviceHang
 from .reference import solve as oracle_solve
 from .tpu import (
     MEGA_MAX_SLOTS,
@@ -78,6 +92,7 @@ from .types import SimNode, SolveResult
 logger = logging.getLogger(__name__)
 
 #: "auto" routes batches of at most this many pods to the CPU oracle
+#: (the reference's name: the native tier once served them)
 NATIVE_BATCH_LIMIT = 256
 #: relaxation-ladder depth cap: at most this many retry waves per solve
 MAX_RELAXATION_WAVES = 8
@@ -206,7 +221,7 @@ class _MegaSlot:
     """One request's slot in a pending megabatch dispatch: ``result()`` is
     valid after the owning collector's ``dispatch()`` ran; the first
     resolver reads the whole group back, and the slot's own exception
-    (SlotsExhausted) is re-raised so the per-request ladder in
+    (SlotsExhausted / DeviceHang) is re-raised so the per-request ladder in
     ``_solve_tpu`` stays the single path's."""
 
     __slots__ = ("_collector", "_idx")
@@ -227,13 +242,15 @@ class _MegaCollector:
     ONE batched group loop per bucket (``solve_many_async``).  Nothing is
     read back at dispatch: the first ``resolve()`` of a group pays its one
     batch-wide read.  A flush that meets a new slot rung is dispatched
-    batched (eager PyTorch has nothing to compile).  The reference wraps
-    each dispatch and read in its device hang guard, which is not ported:
-    they run directly."""
+    batched (eager PyTorch has nothing to compile).  With a ``guard`` (the
+    ``auto`` policy) every dispatch and read runs through it: a hang fans
+    :class:`DeviceHang` to the slots it covers, and each request degrades
+    on its own."""
 
-    def __init__(self, solver: TpuSolver, registry=None,
+    def __init__(self, solver: TpuSolver, guard=None, registry=None,
                  flush_reason: Optional[str] = None) -> None:
         self.solver = solver
+        self.guard = guard
         self.registry = registry
         #: the coalescer's reason for this flush, or None for direct
         #: submit_many callers; when set, the collector owns the flush count
@@ -252,6 +269,9 @@ class _MegaCollector:
     def _observe_slots(self, occupied: int) -> None:
         if self.registry is not None:
             self.registry.histogram(MEGABATCH_SLOTS).observe(occupied)
+
+    def _guarded(self, fn):
+        return self.guard.run(fn) if self.guard else fn()
 
     def dispatch(self) -> None:
         self._slots = [None] * len(self.entries)
@@ -296,8 +316,15 @@ class _MegaCollector:
             ]
             target = mega_key_dims(ukey) if n_src > 1 else None
             try:
-                handle = self.solver.solve_many_async(reqs,
-                                                      target_dims=target)
+                handle = self._guarded(
+                    lambda reqs=reqs, target=target:
+                    self.solver.solve_many_async(reqs, target_dims=target))
+            except DeviceHang as err:
+                # hang at dispatch: fan to every slot — each request's
+                # finish degrades to a host tier
+                for i in idxs:
+                    self._slots[i] = ("err", err)
+                continue
             # megabatch CONSTRUCTION failures (a bucket mismatch, stacking
             # errors) degrade the flush to the proven serial path — clients
             # must never fail on an optimization-layer error
@@ -321,12 +348,13 @@ class _MegaCollector:
             e = self.entries[i]
             self._observe_slots(1)
             try:
-                pending = self.solver.solve_async(
-                    e["st"], existing_nodes=e["existing_nodes"],
-                    max_nodes=e["max_nodes"],
-                    raise_on_exhaust=e["raise_on_exhaust"],
-                    trace=e["trace"],
-                )
+                pending = self._guarded(
+                    lambda e=e: self.solver.solve_async(
+                        e["st"], existing_nodes=e["existing_nodes"],
+                        max_nodes=e["max_nodes"],
+                        raise_on_exhaust=e["raise_on_exhaust"],
+                        trace=e["trace"],
+                    ))
             # boxed per-slot outcome, re-raised by the request's own
             # _MegaSlot.result()
             except BaseException as err:  # noqa: BLE001
@@ -343,9 +371,9 @@ class _MegaCollector:
         if state[0] == "err":
             raise state[1]
         if state[0] == "single":
-            return state[1].result()
+            return self._guarded(state[1].result)
         _kind, handle, pos = state
-        outs = handle.results()
+        outs = self._guarded(handle.results)
         out = outs[pos]
         if isinstance(out, BaseException):
             raise out
@@ -354,8 +382,10 @@ class _MegaCollector:
 
 class BatchScheduler:
     """The provisioning solve's entry point.  ``backend`` is ``"auto"``
-    (oracle for small batches, device otherwise), ``"tpu"`` (the device
-    solve for every batch; the name is the reference's) or ``"oracle"``.
+    (oracle for small batches, device otherwise, host tiers while the
+    device is latched unhealthy), ``"tpu"`` (the device solve for every
+    batch, unguarded; the name is the reference's), ``"native"`` (the C++
+    tier for every device-expressible batch) or ``"oracle"``.
     ``device=None`` is the CUDA card and raises without one; only an
     explicit ``device="cpu"`` runs the device path on the host."""
 
@@ -379,14 +409,19 @@ class BatchScheduler:
         device=None,
         mesh=None,
         compile_behind: Optional[bool] = None,  # None: KT_COMPILE_BEHIND env
+        tracer: Optional[Tracer] = None,
     ) -> None:
-        if backend not in ("auto", "tpu", "oracle"):
+        if backend not in ("auto", "tpu", "native", "oracle"):
             raise ValueError(f"unknown backend {backend!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "the device mesh is not ported to karpenter_tpu_torch yet")
         self.backend = backend
         self.registry = registry or default_registry
+        # held for its flight recorder: the hang and degraded-solve anomaly
+        # hooks dump there
+        self.tracer = (tracer if tracer is not None
+                       else tracer_for(self.registry))
         self.native_batch_limit = native_batch_limit
         self.device = resolve_device(device)
         self.compile_behind = (
@@ -404,9 +439,21 @@ class BatchScheduler:
             self.registry.counter(TENSORIZE_CACHE_HITS).inc(
                 {"tier": tier}, value=0.0)
         self.registry.counter(TENSORIZE_CACHE_MISSES).inc(value=0.0)
-        # the reference's cold-start series exist at 0: the port serves
-        # every signature on the device, so they stay there
+        # hang protection for the auto policy's device dispatches: a wedged
+        # card degrades the reconcile loop to the host tiers instead of
+        # freezing it (solver/guard.py); the probe runs on this scheduler's
+        # device.  Forced backends keep direct calls
+        self._guard = DeviceGuard(
+            on_health_change=self._device_health_changed,
+            device=self.device)
+        self.registry.gauge(SOLVER_DEVICE_HEALTHY).set(1)
+        self.registry.counter(SOLVER_DEVICE_HANGS).inc(value=0.0)
+        # both host-tier counters carry a backend label with both reachable
+        # values (_cold_solve returns "native" or "oracle"); the cold-start
+        # series stay at 0: the port serves every signature on the device
         for fallback_backend in ("native", "oracle"):
+            self.registry.counter(SOLVER_DEGRADED_SOLVES).inc(
+                {"backend": fallback_backend}, value=0.0)
             self.registry.counter(SOLVER_COLD_FALLBACKS).inc(
                 {"backend": fallback_backend}, value=0.0)
         # megabatch collector: non-None only INSIDE submit_many's
@@ -425,12 +472,19 @@ class BatchScheduler:
         zero_init_metrics(self.registry)
         relax_zero_init(self.registry)
         zero_init_hier_metrics(self.registry)
+        # gang outcome series exist before the first ganged batch
+        gangmod.zero_init_gang_metrics(self.registry)
         # hierarchical re-entrancy depth: repair solves issued from inside
         # solve_hierarchical must never route hierarchically themselves
         self._hier_depth = 0
         #: stage timings and counts of the last hierarchical solve
         #: (solve_hierarchical's ``stats``)
         self.hier_stats: dict = {}
+
+    def _device_health_changed(self, healthy: bool) -> None:
+        self.registry.gauge(SOLVER_DEVICE_HEALTHY).set(1 if healthy else 0)
+        if not healthy:
+            self.registry.counter(SOLVER_DEVICE_HANGS).inc()
 
     def solve(
         self,
@@ -456,8 +510,8 @@ class BatchScheduler:
         strictly cheaper.  Large device-tier batches then pass through the
         convex-relaxation rung, which ships min(scan, relax+round):
         ``relax=False`` skips it, ``None`` defers to ``KT_RELAX`` (default
-        on).  A batch with gang pods raises ``NotImplementedError`` (the
-        all-or-nothing epilogue is not ported yet)."""
+        on).  Last, the gang epilogue holds every gang to all-or-nothing
+        and re-packs spread-out gangs (gang.run_epilogue)."""
         return self._submit(
             pods, provisioners, instance_types,
             existing_nodes=existing_nodes, daemonsets=daemonsets,
@@ -519,15 +573,11 @@ class BatchScheduler:
         routing all apply to the subproblem as they would to a fresh
         batch.  Falls back to a full :meth:`solve` of the whole pod set
         when the perturbation exceeds ``KT_DELTA_MAX_FRAC`` or a coupling
-        guard trips.  Gang pods in ``added`` raise ``NotImplementedError``
-        (the gang epilogue is not ported yet).  Consumes ``prev``; returns
-        a ``DeltaOutcome``."""
+        guard trips.  A gang member's removal retracts its whole gang, and
+        a gang add that the incremental tier leaves unplaced falls back to
+        the full solve.  Consumes ``prev``; returns a ``DeltaOutcome``."""
         from . import warmstart
         from .relax import relax_delta_enabled
-
-        if gang_enabled() and has_gangs(added):
-            raise NotImplementedError(
-                "gang scheduling is not ported to karpenter_tpu_torch yet")
 
         # the relax rung is a $-for-latency trade the delta path must not
         # pay: displaced-subproblem scans always skip it, and the FULL-solve
@@ -547,12 +597,35 @@ class BatchScheduler:
                 relax=None if relax_delta_enabled() else False,
             )
 
-        return warmstart.delta_solve(
+        # a member removal retracts the WHOLE gang: seated comembers join
+        # the removal set and surface as unplaced with the typed
+        # GangUnplaced reason
+        gang_retracted: Dict[str, str] = {}
+        if gangmod.gang_enabled() and removed:
+            removed, gang_retracted = gangmod.expand_gang_removals(
+                prev, removed)
+
+        out = warmstart.delta_solve(
             prev, added, removed, iced,
             solve_displaced=_solve, solve_full=_solve_full,
             max_delta_frac=max_delta_frac, registry=self.registry,
             unavailable=unavailable, force_full=force_full,
         )
+        # a gang add places atomically or falls back to the FULL solve:
+        # when the incremental tier left an added gang (wholly, post-
+        # epilogue) unplaced, re-solve everything from the stripped base —
+        # one more chance before the typed verdict stands
+        if (gangmod.gang_enabled() and out.mode != "full" and added
+                and gangmod.delta_needs_full(out.result, added)):
+            out = warmstart.delta_solve(
+                out.result, (), (), (),
+                solve_displaced=_solve, solve_full=_solve_full,
+                max_delta_frac=max_delta_frac, registry=self.registry,
+                unavailable=unavailable, force_full=True,
+            )
+        for name, reason in gang_retracted.items():
+            out.result.infeasible.setdefault(name, reason)
+        return out
 
     def submit_many(
         self, requests: Sequence[dict],
@@ -568,8 +641,10 @@ class BatchScheduler:
         ORDER — ``result()`` runs that request's own epilogues against its
         own result only.  Same single-thread contract as :meth:`submit`.
         ``flush_reason`` transfers the MEGABATCH_FLUSH count here."""
+        guarded = self.backend == "auto" and self._guard.enabled
         collector = _MegaCollector(
-            self._tpu, registry=self.registry, flush_reason=flush_reason)
+            self._tpu, guard=self._guard if guarded else None,
+            registry=self.registry, flush_reason=flush_reason)
         self._mega_collect = collector
         try:
             pendings = [
@@ -600,9 +675,9 @@ class BatchScheduler:
     def bucket_key(self, kwargs: dict) -> Optional[tuple]:
         """Megabatch shape bucket of one queued solve request, or None when
         it cannot ride a megabatch (non-device backend, oracle routing,
-        device carve-outs, cache disabled).  Every signature is served on
-        the device the first time it is seen, so a new shape buckets like a
-        seen one.  Single-thread, like submit: the tensorize it performs
+        device carve-outs, unhealthy device, cache disabled).  Every
+        signature is served on the device the first time it is seen, so a
+        new shape buckets like a seen one.  Single-thread, like submit: the tensorize it performs
         lands in the cache, so the real solve's tensorize is a hit."""
         if self.backend not in ("auto", "tpu"):
             return None
@@ -620,6 +695,9 @@ class BatchScheduler:
                 return None
             if any(device_inexpressible(p) for p in hardened):
                 return None  # oracle carve-outs couple waves; keep serial
+            if (self.backend == "auto" and self._guard.enabled
+                    and not self._guard.healthy):
+                return None
             st, _tier = self._tensorize_cache.tensorize(
                 hardened, kwargs["provisioners"], kwargs["instance_types"],
                 daemonsets=kwargs.get("daemonsets") or (),
@@ -654,9 +732,6 @@ class BatchScheduler:
         relax: Optional[bool] = None,
         dispatch: bool = False,
     ) -> PendingScheduleResult:
-        if gang_enabled() and has_gangs(pods):
-            raise NotImplementedError(
-                "gang scheduling is not ported to karpenter_tpu_torch yet")
         t0 = time.perf_counter()
         trace = trace or NULL_TRACE
         trace.annotate(backend=self.backend, n_pods=len(pods))
@@ -751,6 +826,31 @@ class BatchScheduler:
                     daemonsets, unavailable, allow_new_nodes, max_new_nodes,
                     relax, trace,
                 )
+                # gang all-or-nothing + co-location epilogue (gang/): after
+                # the relax rung — gang groups are relax-ineligible, so
+                # their scan seats are fixed by the time the epilogue
+                # audits, retracts and packs them
+                if gangmod.gang_enabled() and gangmod.has_gangs(pods):
+                    with trace.span("gang") as gang_span:
+                        result = gangmod.run_epilogue(
+                            result, pods,
+                            registry=self.registry,
+                            # a retraction that would disturb watched
+                            # spread/affinity accounting re-solves the
+                            # keep-set from the pristine existing nodes
+                            resolve=lambda keep: self._solve_wave(
+                                keep, provisioners, instance_types,
+                                list(existing_nodes), daemonsets, unavailable,
+                                allow_new_nodes, max_new_nodes, trace=trace),
+                            provisioners=provisioners,
+                            instance_types=instance_types,
+                            daemonsets=daemonsets,
+                            unavailable=unavailable,
+                            allow_new_nodes=allow_new_nodes,
+                            max_new_nodes=max_new_nodes,
+                            in_band=self._reseat_in_band,
+                            trace=gang_span,
+                        )
                 trace.annotate(
                     served_cold=result.served_cold,
                     n_nodes=len(result.nodes),
@@ -809,8 +909,11 @@ class BatchScheduler:
         (snapshots) set the NE/NR rungs, so the shapes warmed are the ones
         the provisioning and consolidation solves will hit.  Returns the
         number of warms accepted; cheap to call again (signatures dedupe).
-        The relax rung's warm comes with the serving layer."""
-        if self.backend not in ("auto", "tpu") or not self.compile_behind:
+        The relax rung's warm comes with the serving layer.  Nothing is
+        warmed while the device is latched unhealthy (a warm against a
+        wedged card would hang its thread too)."""
+        if (self.backend not in ("auto", "tpu") or not self.compile_behind
+                or not self._guard.healthy):
             return 0
         started = 0
         for st in self._profile_tensors(provisioners, instance_types,
@@ -858,7 +961,8 @@ class BatchScheduler:
             provisioners, instance_types, daemonsets=daemonsets,
             existing_nodes=existing_nodes, profiles=profiles,
         )
-        if self.backend in ("auto", "tpu") and self.compile_behind:
+        if (self.backend in ("auto", "tpu") and self.compile_behind
+                and self._guard.healthy):
             rungs = sorted({
                 s for s in (mega_slots or self.WARM_MEGA_SLOTS)
                 if 2 <= s <= MEGA_MAX_SLOTS
@@ -889,8 +993,10 @@ class BatchScheduler:
 
     def stop_warms(self) -> None:
         """Stop background warms (shutdown): queued warms are dropped; exit
-        waits only for the warms already running."""
+        waits only for the warms already running.  Also stops the device
+        guard's recovery probe."""
         self._tpu.stop_warms()
+        self._guard.stop()
 
     def _warm_done(self, sig, seconds: float, err) -> None:
         # runs BEFORE the warm thread clears its own in-flight entry (so
@@ -1202,7 +1308,8 @@ class BatchScheduler:
         if self._tensorize_cache is None:
             return result  # without cached tensorize the probe would pay
             # a full host build per solve — not the rung's trade
-        if result.served_cold:
+        guarded = self.backend == "auto" and self._guard.enabled
+        if result.served_cold or (guarded and not self._guard.healthy):
             relax_mod.record_outcome(self.registry, "skipped")
             return result
         try:
@@ -1318,8 +1425,9 @@ class BatchScheduler:
                     max_new_nodes) -> bool:
         """Hierarchical routing gate: block decomposition at/above
         ``KT_HIER_THRESHOLD`` pods — greenfield batches only (no existing
-        nodes, unbounded budget), with no device-inexpressible pods, and
-        never from inside a hierarchical repair."""
+        nodes, unbounded budget), on a healthy device tier, with no
+        device-inexpressible pods, and never from inside a hierarchical
+        repair."""
         from .hierarchy import hier_threshold
 
         thr = hier_threshold()
@@ -1331,8 +1439,52 @@ class BatchScheduler:
             and not existing_nodes
             and allow_new_nodes
             and max_new_nodes is None
+            and self._guard.healthy
             and not any(device_inexpressible(p) for p in pods)
         )
+
+    def _route_native(self, st, n_pods: int) -> bool:
+        """Forced native backend only: the ``auto`` policy serves small
+        batches from the oracle and large ones from the device; the native
+        tier serves ``auto`` batches only while the device is latched
+        unhealthy (:meth:`_cold_solve`)."""
+        return self.backend == "native"
+
+    def _cold_solve(
+        self, st, tpu_pods, provisioners, instance_types, all_existing,
+        daemonsets, unavailable, allow_new_nodes, max_slots, max_new_nodes,
+    ):
+        """Serve a batch from a host tier (the reference's name): the native
+        C++ tier when it can express the batch, else the CPU oracle.  The
+        port reaches it only as the degraded tier."""
+        from . import native as native_mod
+
+        if native_mod.available() and not native_mod.has_topology(st):
+            res = native_mod.solve_tensors_native(
+                st, existing_nodes=all_existing, max_nodes=max_slots,
+            )
+            return res, "native"
+        res = oracle_solve(
+            tpu_pods, provisioners, instance_types,
+            existing_nodes=all_existing, daemonsets=daemonsets,
+            unavailable=unavailable, allow_new_nodes=allow_new_nodes,
+            max_new_nodes=max_new_nodes,
+        )
+        return res, "oracle"
+
+    def _flight_anomaly(self, reason: str, detail: str, trace) -> None:
+        """Hand an anomaly (hang-guard trip, degraded solve) to the flight
+        recorder with the in-flight trace, so the dump explains THIS solve.
+        Best-effort: a failure to record must never fail the solve the host
+        tier is about to serve."""
+        try:
+            flight = getattr(self.tracer, "flight", None)
+            if flight is not None:
+                flight.anomaly(reason, detail=detail,
+                               trace=trace if trace else None)
+        except Exception:  # noqa: BLE001 — observability must not fail solves
+            logger.warning("flight-recorder anomaly dump failed (%s)",
+                           reason, exc_info=True)
 
     def _tensorize(self, pods, provisioners, instance_types, daemonsets,
                    unavailable, trace=NULL_TRACE) -> Tuple["object", float]:
@@ -1368,7 +1520,10 @@ class BatchScheduler:
         ``dispatch`` is set and the batch has no oracle carve-outs, a
         :class:`_PendingWave` whose ``finish`` reads the async dispatch
         back (inside ``submit_many``'s registration, the wave joins the
-        megabatch collector instead of dispatching)."""
+        megabatch collector instead of dispatching).  ``backend="native"``
+        serves the wave from the C++ tier; under ``auto`` every device
+        call runs through the hang guard, and a hang or an unhealthy
+        device serves the wave from a host tier (``_degraded_fallback``)."""
         trace = trace or NULL_TRACE
         tpu_pods = [p for p in pods if not device_inexpressible(p)]
         cpu_pods = [p for p in pods if device_inexpressible(p)]
@@ -1453,13 +1608,13 @@ class BatchScheduler:
         all_existing = list(cur_existing) + nodes
         max_slots = len(all_existing) + new_budget
 
-        def _adopt_device(res: SolveResult) -> SolveResult:
+        def _adopt_device(res: SolveResult, backend_used: str) -> SolveResult:
             """Post-device bookkeeping (metrics, what-if filtering, chain) —
             identical for the sync and async returns."""
             nonlocal solve_ms
-            trace.annotate(backend_used="tpu")
+            trace.annotate(backend_used=backend_used)
             self.registry.histogram(SOLVER_BACKEND_DURATION).observe(
-                time.perf_counter() - t0, {"backend": "tpu"})
+                time.perf_counter() - t0, {"backend": backend_used})
             if not allow_new_nodes and res.nodes:
                 # consolidation what-if with no new nodes allowed: pods that
                 # needed new nodes are infeasible
@@ -1476,28 +1631,93 @@ class BatchScheduler:
             solve_ms += res.solve_ms
             return _tail()
 
+        def _degraded_fallback() -> SolveResult:
+            """Host-tier serve while the device tier is latched unhealthy:
+            counted apart from cold-start fallbacks (the device was not
+            answering) and not flagged served_cold — degraded answers
+            provision real long-lived nodes, so they keep the reseat
+            polish."""
+            res, backend_used = self._cold_solve(
+                st, tpu_pods, provisioners, instance_types, all_existing,
+                daemonsets, unavailable, allow_new_nodes, max_slots,
+                max_new_nodes,
+            )
+            self.registry.counter(SOLVER_DEGRADED_SOLVES).inc(
+                {"backend": backend_used})
+            trace.annotate(degraded=True)
+            self._flight_anomaly(
+                "degraded_solve",
+                f"device tier latched unhealthy; {len(tpu_pods)}-pod batch "
+                f"served by the warm {backend_used} tier", trace)
+            return _adopt_device(res, backend_used)
+
+        def _hung(where: str) -> SolveResult:
+            self._flight_anomaly(
+                "device_hang", f"{where} hung past the guard deadline "
+                "(wedged device?)", trace)
+            return _degraded_fallback()
+
+        if self._route_native(st, len(tpu_pods)):
+            from . import native as native_mod
+
+            res = native_mod.solve_tensors_native(
+                st, existing_nodes=all_existing, max_nodes=max_slots,
+            )
+            return _adopt_device(res, "native")
+
         # the port has no cold tier to serve an exhausted estimate from:
         # every path retries at the full budget inline
+        guarded = self.backend == "auto" and self._guard.enabled
+        if guarded and not self._guard.healthy:
+            return _degraded_fallback()
         collector = self._mega_collect
         if dispatch and collector is not None:
             # megabatch registration (submit_many): the first device wave
             # joins the collector's pending batch; ONE batched dispatch
-            # later serves every slot
+            # later serves every slot.  A hang degrades this request only
             slot = collector.add(
                 st=st, existing_nodes=all_existing, max_nodes=max_slots,
                 raise_on_exhaust=False, trace=trace,
             )
-            return _PendingWave(lambda: _adopt_device(slot.result().result))
+
+            def _finish_mega() -> SolveResult:
+                try:
+                    out = slot.result()
+                except DeviceHang:
+                    return _hung("megabatch device dispatch")
+                return _adopt_device(out.result, "tpu")
+
+            return _PendingWave(_finish_mega)
+
+        def _call(fn, *args, **kwargs):
+            return (self._guard.run(fn, *args, **kwargs) if guarded
+                    else fn(*args, **kwargs))
+
         if dispatch:
             # async dispatch: enqueue without reading back; the caller does
-            # other host work before finish() reads the wave
-            pending = self._tpu.solve_async(
-                st, existing_nodes=all_existing, max_nodes=max_slots,
-                trace=trace,
-            )
-            return _PendingWave(
-                lambda: _adopt_device(pending.result().result))
-        out = self._tpu.solve(
-            st, existing_nodes=all_existing, max_nodes=max_slots, trace=trace,
-        )
-        return _adopt_device(out.result)
+            # other host work before finish() reads the wave.  Both halves
+            # run under the guard
+            try:
+                pending = _call(
+                    self._tpu.solve_async, st, existing_nodes=all_existing,
+                    max_nodes=max_slots, trace=trace)
+            except DeviceHang:
+                return _hung("device dispatch")
+
+            def _finish_wave() -> SolveResult:
+                try:
+                    out = _call(pending.result)
+                except DeviceHang:
+                    return _hung("device read-back")
+                return _adopt_device(out.result, "tpu")
+
+            return _PendingWave(_finish_wave)
+        try:
+            out = _call(
+                self._tpu.solve, st, existing_nodes=all_existing,
+                max_nodes=max_slots, trace=trace)
+        except DeviceHang:
+            # the guard latched the device tier unhealthy; this batch and
+            # every one until the probe answers are served by a host tier
+            return _hung("device solve")
+        return _adopt_device(out.result, "tpu")

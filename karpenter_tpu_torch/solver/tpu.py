@@ -35,8 +35,14 @@ nothing, so the warm API keeps the reference's meaning without the stall:
 a signature is ``ready`` once this process has run it, a warm runs it on a
 background thread, and a cold signature is served on the device.
 
+The fault plane (``faults``, ``KT_FAULTS``) fires at the reference's two
+choke points: ``dispatch`` before every enqueue (``_enqueue_entries``) and
+``fence`` before every device-to-host read (``_read_back``; a
+``slow_fence`` effect is slept there).  Unset, the plane is falsy and
+costs one bool check.
+
 Left out of this port for now: the mesh (every ``mesh`` argument accepts
-only None), the fault plane and the multi-host fence.
+only None) and the multi-host fence.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import faults as faults_mod
 from ..device import resolve_device
 from ..models import labels as L
 from ..models.tensorize import SolveTensors
@@ -996,6 +1003,10 @@ class TpuSolver:
         self.device = resolve_device(device)
         # injectable clock for the warm-failure backoff
         self._clock = clock or Clock()
+        # fault-injection plane: null and falsy unless KT_FAULTS configures
+        # a chaos schedule — the dispatch/fence choke points guard with one
+        # truthiness check
+        self._faults = faults_mod.plane()
         self._lock = threading.Lock()
         self._ready: set = set()                     # guarded-by: _lock
         self._compiling: set = set()                 # guarded-by: _lock
@@ -1398,6 +1409,8 @@ class TpuSolver:
         one dims bucket): uploads, feasibility per distinct input set, then
         the batched group loop.  Returns the device ``(carry, ys)`` with a
         leading slot axis; nothing here reads the device back."""
+        if self._faults:
+            self._faults.fire("dispatch")  # dispatch_exc raises here
         dims0 = entries[0]["dims"]
         if not all(e["dims"] == dims0 for e in entries):
             raise MegaBucketMismatch("megabatch entries span dims buckets")
@@ -1456,9 +1469,13 @@ class TpuSolver:
                       "g_host_paff")})
         return _run_scan(consts, tuple(init), NR, Z, track, flags)
 
-    @staticmethod
-    def _read_back(carry, ys):
-        """The read-back half: the one device-to-host read of a dispatch."""
+    def _read_back(self, carry, ys):
+        """The read-back half: the one device-to-host read of a dispatch
+        (the ``fence`` fault site: ``device_hang`` raises here)."""
+        if self._faults:
+            effect = self._faults.fire("fence")
+            if effect is not None and effect.kind == "slow_fence":
+                self._faults.sleep(effect)
         carry_np = [x.cpu().numpy() for x in carry]
         ys_np = ys.cpu().numpy() if ys is not None else None
         return carry_np, ys_np

@@ -15,10 +15,9 @@ run observed — bindings, node plans (name, type, zone, capacity type,
 price, pods), events and the controllers' metric counts — must be equal.
 The end-to-end cases run with the ``oracle`` backend and with the device
 backend (``backend="tpu"``; the port on ``device="cpu"``, the reference
-compiling inline) as two cases of one test.
-
-Left out: the reference's ``TestAutoBackendE2E`` drives its native C++
-tier, which the port does not have yet.
+compiling inline) as two cases of one test.  The reference's
+``TestAutoBackendE2E`` runs the operator's default configuration,
+``backend="auto"``, through the controller.
 """
 
 import importlib
@@ -399,6 +398,34 @@ def _scheduler_end_to_end(k, backend):
     assert len(state.pending_pods()) == 0
     assert all(p in state.bindings for p in state.pods)
     return snapshot(state, ctrl.recorder)
+
+
+def _auto_backend_end_to_end(k):
+    """The reference's ``TestAutoBackendE2E``: the operator's default
+    ``backend="auto"`` scheduler serves a small unconstrained batch end to
+    end (the reference skips it without its native library; both packages
+    build theirs here)."""
+    from karpenter_tpu.solver import native as ref_native
+    from karpenter_tpu_torch.solver import native as t_native
+
+    assert ref_native.available() and t_native.available()
+    clock = k.clock.FakeClock()
+    state = k.state_mod.ClusterState(clock=clock)
+    cloud = k.fake.FakeCloudProvider(catalog(k), clock=clock)
+    ctrl = k.provisioning.ProvisioningController(
+        state, cloud, scheduler=make_scheduler(k, "auto"), clock=clock)
+    state.apply_provisioner(k.provisioner.Provisioner(name="default"))
+    for i in range(20):
+        state.add_pod(k.pod.PodSpec(name=f"p{i}", requests={"cpu": 1.0},
+                                    owner_key="d"))
+    assert pump(ctrl, clock) is not None
+    assert len(state.pending_pods()) == 0
+    assert all(p in state.bindings for p in state.pods)
+    return snapshot(state, ctrl.recorder)
+
+
+def test_auto_backend_end_to_end_matches_reference():
+    run_both(_auto_backend_end_to_end)
 
 
 E2E_CASES = {

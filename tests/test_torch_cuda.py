@@ -16,7 +16,10 @@ programs give the same bits on ``cuda`` as on ``cpu``: the relax program
 (and its exp) and the consolidation screen.  The controllers' repack loop
 makes the same decisions on ``cuda`` as on ``cpu``, and so do the serving
 entry points: a megabatch flush, a constrained delta chain, and ``submit``
-(never served cold).
+(never served cold).  The device hang guard latches on a real stall of
+the card and recovers only once it drained, an injected hang degrades and
+recovers, and a gang-bearing hierarchical batch plans the same on ``cuda``
+as on ``cpu``.
 """
 
 import numpy as np
@@ -290,3 +293,34 @@ def test_submit_on_cuda_never_served_cold(cuda):
         res = sched.submit(pods, [cs.provisioner()], catalog).result()
         assert not res.served_cold and not res.infeasible
     assert sum(reg.counter(SOLVER_COLD_FALLBACKS).values.values()) == 0
+
+
+def test_guard_real_stall_latches_until_drained(cuda):
+    """A guarded call that spins the card past the guard's deadline raises
+    DeviceHang and latches the tier; the probe, an op on the same card,
+    reports healthy only after the stall drained."""
+    import chip_smoke as cs
+
+    out = cs.real_stall(stall_s=3.0, timeout_s=1.0)
+    assert out["events"] == [False, True]
+    assert out["healthy_after_s"] >= out["stall_drained_s"] - 0.05
+
+
+def test_gang_hierarchical_batch_cuda_matches_cpu(cuda):
+    """A gang-bearing hierarchical batch under a binding limit plans the
+    same on ``cuda`` as on ``cpu``, every gang all or none."""
+    import chip_smoke as cs
+
+    out = cs.gang_hier_parity(nd=6, per=60, n_gangs=2)
+    assert out["plans_equal"] or out["placements_tie"]
+    assert {"doomed", "short"} <= set(out["retracted"])
+
+
+def test_injected_hang_degrades_and_recovers_on_cuda(cuda):
+    """device_hang@fence on a fresh ``auto`` scheduler: a host tier serves
+    the batch, the guard latches, the probe recovers, and the next solve
+    equals an unfaulted one."""
+    import chip_smoke as cs
+
+    out = cs.injected_hang()
+    assert out["device_hangs"] == 1 and out["recovered_equals_unfaulted"]

@@ -76,9 +76,10 @@ def test_every_module_is_probed():
                  "batcher", "metrics", "obs", "obs.trace", "obs.recorder",
                  "controllers.state", "controllers.termination",
                  "controllers.provisioning", "controllers.deprovisioning",
-                 "repack"):
+                 "repack", "errors", "faults", "faults.plane", "gang",
+                 "solver.guard", "solver.native"):
         assert f"karpenter_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 48
+    assert len(MODULES) >= 53
 
 
 @pytest.mark.parametrize("module", MODULES + ["chip_smoke"])

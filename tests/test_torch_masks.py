@@ -132,3 +132,29 @@ def test_gather_pm_bits(seed):
 
 def test_constants_match():
     assert np.float32(ops.BIG).tobytes() == np.float32(ref.BIG).tobytes()
+
+
+def test_band_remainder_takes_a_zone_with_whole_headroom():
+    """Queue C2's band: no pods yet, free rows in zone 0 only, 2 pods at
+    maxSkew 1.  The band fill's remainder must land below the band top
+    ([1, 1, 0]); the reference's top-up takes the fractional headroom of
+    zone 0 first and returns the skew-violating [2, 0, 0]."""
+    cur = torch.zeros(1, 3)
+    rows = torch.tensor([[6.0, 0.0, 0.0]])
+    el = torch.ones(1, 3, dtype=torch.bool)
+    got = ops.skew_band_fill(cur, rows, torch.full((1, 3), BIGN),
+                             torch.tensor([2.0]), torch.tensor([1.0]), el)
+    assert got.tolist() == [[1, 1, 0]]
+    want_ref = np.asarray(ref.skew_band_fill(
+        jnp.zeros(3), jnp.asarray([6.0, 0.0, 0.0]), jnp.full(3, BIGN),
+        jnp.float32(2), jnp.float32(1), jnp.ones(3, bool)))
+    assert want_ref.tolist() == [2, 0, 0]
+    # whole-unit room is taken before fractional room, in zone order
+    got = ops.water_fill(torch.tensor([[1.0, 0.0, 0.0]]),
+                         torch.tensor([[0.34, 1.34, 1.34]]),
+                         torch.tensor([1.0]), el)
+    assert got.tolist() == [[0, 1, 0]]
+    got = ops.water_fill(torch.zeros(1, 3),
+                         torch.tensor([[0.67, 0.67, 0.67]]),
+                         torch.tensor([2.0]), el)
+    assert got.tolist() == [[1, 1, 0]]

@@ -387,3 +387,33 @@ def test_slot_exhaustion_retries_at_full_budget(catalogs):
         solver.solve(st, raise_on_exhaust=True)
     out = t_tpu.TpuSolver(device="cpu").solve(st)
     assert len(out.result.nodes) == 2100 and not out.result.infeasible
+
+
+@pytest.mark.parametrize("n_warm,n_spread", [(254, 2), (1000, 2), (1000, 5),
+                                             (1000, 8), (1000, 14), (253, 2),
+                                             (1000, 7)])
+def test_spread_remainder_behind_an_open_row_matches_oracle(n_warm, n_spread):
+    """ROADMAP Queue C2: a zone-spread group of n = 2 (mod 3) pods behind
+    >= 254 unconstrained warm pods.  An open row in one zone left the band
+    fill's integer remainder on that row's zone (a fractional band headroom
+    took the unit), so the reference's scan leaves one pod unplaced where
+    the oracle seats every pod.  The port's scan seats them all, as the
+    oracle does, within the spread's skew."""
+    import chip_smoke as cs
+    from karpenter_tpu_torch.solver import reference as t_reference
+
+    catalog = t_catalog.generate_catalog(full=False)
+    pods = (cs.warmstart_pods(n_warm, "cs")
+            + cs.spread_deployment("sp0", n_spread))
+    provs = [cs.provisioner()]
+    oracle = t_reference.solve(pods, provs, catalog)
+    st = t_tensorize.tensorize(pods, provs, catalog)
+    scan = t_tpu.TpuSolver(device="cpu").solve(st).result
+    assert scan.infeasible == oracle.infeasible == {}
+    per_zone = {}
+    for n in scan.nodes:
+        per_zone[n.zone] = per_zone.get(n.zone, 0) + sum(
+            1 for p in n.pods if p.name.startswith("sp0-"))
+    zones = {o.zone for it in catalog for o in it.offerings}
+    counts = [per_zone.get(z, 0) for z in zones]
+    assert sum(counts) == n_spread and max(counts) - min(counts) <= 1

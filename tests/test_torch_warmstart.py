@@ -15,8 +15,9 @@ node names, node plans, assignments (node names included) and infeasible
 reasons, and the warm-start metric counts.
 
 Also here: the warm-API contract cases of ``tests/test_coldstart.py`` that
-do not involve the native tier (the port has none), and a gang pod in
-``added`` refused with ``NotImplementedError`` until gangs are ported.
+do not involve the native tier's cold-start serve (the port serves every
+shape on the device), and a gang pod in ``added`` and in ``submit`` solved
+as the reference solves it.
 """
 
 import threading
@@ -588,18 +589,25 @@ def test_scheduler_delta_matches_reference(catalogs, name, backend):
     run_both(catalogs, SCHEDULER_SCENARIOS[(name, backend)], backend=backend)
 
 
-def test_gang_pod_in_added_is_refused(catalogs):
-    c = Ctx(PORT, catalogs["port"], solved=False)
+def s_gang_pod_in_added(k, c):
+    """A gang pod in ``added`` (and in ``submit``) is no longer refused:
+    the one-member gang places atomically through the delta step and
+    through the async entry, as in the reference."""
     sched = c.scheduler("oracle")
-    prev = sched.solve(mk_pods(PORT, 8, "p"), [c.prov], c.catalog)
-    member = t_pod.PodSpec(name="g-0", requests={"cpu": 0.5},
+    prev = sched.solve(mk_pods(k, 8, "p"), [c.prov], c.catalog)
+    member = k.pod.PodSpec(name="g-0", requests={"cpu": 0.5},
                            owner_key="g")
     member.gang_id = "train"
-    with pytest.raises(NotImplementedError):
-        sched.solve_delta(prev, added=[member], provisioners=[c.prov],
-                          instance_types=c.catalog)
-    with pytest.raises(NotImplementedError):
-        sched.submit([member], [c.prov], c.catalog)
+    out = sched.solve_delta(prev, added=[member], provisioners=[c.prov],
+                            instance_types=c.catalog)
+    assert "g-0" in out.result.assignments
+    res = sched.submit([member], [c.prov], c.catalog).result()
+    assert "g-0" in res.assignments
+    return [observe(out), plan(res), dict(res.assignments)]
+
+
+def test_gang_pod_in_added_is_refused(catalogs):
+    run_both(catalogs, s_gang_pod_in_added)
 
 
 # ---------------------------------------------------------------------------
