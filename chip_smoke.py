@@ -54,7 +54,7 @@ no result):
    every single and structured subset on the card), one full
    deprovisioning reconcile at 200 nodes (the screen on the card, a
    proposed action executed, the fleet settled, a warm reconcile), and
-   the ladder driven to convergence at 150 nodes (no pod pending, every
+   the ladder driven to convergence at 100 nodes (no pod pending, every
    pod bound once, no node over its allocatable, a lower cost); (c) a
    100-node fleet driven to convergence on ``cuda`` and on ``cpu``: equal
    actions, final cluster and bindings.  The sizes are cut from the
@@ -93,17 +93,36 @@ no result):
     does), and a real 5 s stall of the card under a 2 s guard (a hang
     raised, the tier latched, healthy again only after the stall drained);
     (d) the native tier's ``g++`` build, ``backend="native"`` and the
-    ``auto`` backend through ``ProvisioningController``.
+    ``auto`` backend through ``ProvisioningController``;
+12. service — the solver sidecar: (a) the reference bench's
+    ``measure_throughput`` through ``SolvePipeline`` on ``backend="tpu"``
+    (32 clients of 320 pods, 4 s at concurrency 1 on a 1-slot pipeline,
+    then 1, 8 and 32 on an 8-slot one): solves/s, slot occupancy, the
+    lone-request latency ratio, the device busy share by CUDA events,
+    every tenant's plan equal to its solo plan, c32 above c1; (b) the
+    bench's ``measure_overload``: 2 ``critical`` and 8 ``best_effort``
+    closed-loop clients of 200 pods against a tight admission queue, with
+    its unloaded critical baseline: no critical shed, some best_effort
+    sheds; (c) the slice's batch as one ``Solve`` RPC to
+    ``make_server(SolverService(...))`` on a unix socket from a raw
+    ``grpc`` stub: encode ms, bytes, RPC wall, ``solve_ms``, the slice's
+    plan, one ``price_step_scores`` launch per price iteration; (d)
+    ``device_hang@fence`` through a pipeline with admission on: the
+    breaker opens, host-routes, half-opens and closes, then the
+    ``hier_threshold`` knob moved at runtime routes a 25,000-pod batch
+    hierarchically.
 
-After every phase but 11(c) the run checks that no device hang was
-counted, no solve was served degraded, every scheduler's guard is healthy
-and no warning was trapped, and prints its guarded device calls' longest
-wall against its budget (a ``guard`` line).  Launch counts (the
+After every phase but 11(c) and 12(d) the run checks that no device hang
+was counted, no solve was served degraded or host-routed by admission,
+every scheduler's guard is healthy and no warning was trapped, and prints
+its guarded device calls' longest wall against its budget (a ``guard``
+line).  Launch counts (the
 hand-written kernels', and the relax and screen programs' runs) are
 zeroed just before each path is driven and read just after; no
 hand-written kernel is on the relax, consolidation, repack,
 serving-request or delta path, so their kernel counts read 0 there (the
-kernel table adds phase 10(b)'s and 11(a)'s launches to the slice's).
+kernel table adds phase 10(b)'s, 11(a)'s and 12(c)'s launches to the
+slice's).
 The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
@@ -1220,9 +1239,9 @@ def phase_consolidation():
 #: the card the port's what-if solves are launch-bound (about 10 s for a
 #: what-if over 240 of 300 nodes), so a full evaluation at 5,000 nodes
 #: does not fit this script's time: the screen step runs at 5,000, the
-#: rest at these sizes, cut again (from 300 and 200) when phase 11 came in
-#: (PERF.md §4)
-REPACK_SIZES = {"screen": 5000, "reconcile": 200, "converge": 150,
+#: rest at these sizes, cut again (from 300 and 200) when phase 11 came in,
+#: and the convergence again (from 150) when phase 12 came in (PERF.md §4)
+REPACK_SIZES = {"screen": 5000, "reconcile": 200, "converge": 100,
                 "parity": 100}
 
 
@@ -1848,6 +1867,7 @@ def phase_serving(limit, slice_res):
     t_phase = time.perf_counter()
     small = generate_catalog(full=False)
     sched, solo, mega = serving_megabatch(small)
+    SOLO_PLANS[:] = [plan(r) for r in solo]
     emit("serving_megabatch", **mega)
     launches, hier = serving_hier_flush(
         sched, solo, small, generate_catalog(full=True), limit, slice_res)
@@ -1911,14 +1931,17 @@ def guard_clean(after: str) -> None:
     hangs = sum(r.counter(metrics.SOLVER_DEVICE_HANGS).get()
                 for r in regs.values())
     unhealthy = sum(1 for _r, g in SCHEDULERS if not g.healthy)
+    routed = sum(host_routed(r) for r in regs.values())
     check(degraded == 0 and hangs == 0 and unhealthy == 0,
           f"after {after}: {hangs} device hangs, {degraded} degraded "
           f"solves, {unhealthy} unhealthy guards")
+    check(routed == 0, f"after {after}: {routed} solves host-routed by "
+          "admission")
     check(not FAULTS.records, f"the port fell back: {FAULTS.records}")
     calls = [(b, w) for ph, b, w in GUARDED if ph == after]
     worst = max(calls, key=lambda c: c[1] / c[0]) if calls else None
     emit("guard", after=after, schedulers=len(SCHEDULERS),
-         degraded_solves=degraded, device_hangs=hangs,
+         degraded_solves=degraded, device_hangs=hangs, host_routed=routed,
          guarded_calls=len(calls),
          max_wall_s=worst[1] if worst else None,
          its_budget_s=worst[0] if worst else None,
@@ -2405,6 +2428,499 @@ def phase_gangs():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the solver sidecar (SolvePipeline, admission, SolverService)
+# ---------------------------------------------------------------------------
+
+
+#: phase 12's sizes: the reference bench's ``measure_throughput`` (32
+#: clients, 4 s per concurrency, 8 slots) and ``measure_overload`` (2
+#: critical and 8 best_effort clients of 200 pods, 4 s)
+SERVICE = {"clients": 32, "seconds": 4.0, "max_slots": 8,
+           "concurrency": (1, 8, 32), "critical": 2, "best_effort": 8,
+           "overload_pods": 200, "hier_knob_pods": (10, 2500),
+           "wire_trace_budget_s": 300.0}
+#: plans of phase 10(a)'s 32 solo serving solves, reused by 12(a)
+SOLO_PLANS: list = []
+
+
+def overload_pods(client: int, n: int = 200):
+    """One overload client's batch (the reference's overload demo
+    ``admission/__main__.py`` ``_pods``, which its bench's
+    ``_overload_pods`` calls with ``n=200``)."""
+    from karpenter_tpu_torch.models.pod import PodSpec
+
+    return [
+        PodSpec(name=f"c{client}-p{i}", labels={"app": f"c{client}"},
+                requests={"cpu": 0.25 * (1 + (i + client) % 4),
+                          "memory": float(1 + (i + client) % 3) * GIB},
+                owner_key=f"c{client}")
+        for i in range(n)
+    ]
+
+
+def demo_percentile(vals, q: float) -> float:
+    """The overload demo's percentile (``admission/__main__.py``)."""
+    if not vals:
+        return 0.0
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(q * (len(vals) - 1) + 0.5))]
+
+
+def host_routed(registry) -> float:
+    from karpenter_tpu_torch.metrics import ADMISSION_HOST_ROUTED
+
+    return sum(registry.counter(ADMISSION_HOST_ROUTED).values.values())
+
+
+def closed_loop(pipe, kwargs_of, n_clients: int, seconds: float,
+                pclass=None, deadline_s=None):
+    """``n_clients`` threads each re-submitting its own request through
+    ``pipe`` until ``seconds`` pass.  Returns (served per client, the last
+    result per client, latencies s, typed sheds, wall s)."""
+    import threading
+
+    from karpenter_tpu_torch.admission import SolveShedError
+
+    counts = [0] * n_clients
+    last = [None] * n_clients
+    lat, sheds = [], []
+    errors = []
+    stop_at = time.perf_counter() + seconds
+    start = threading.Barrier(n_clients + 1)
+
+    def client(ci):
+        start.wait()
+        while time.perf_counter() < stop_at:
+            t0 = time.perf_counter()
+            try:
+                last[ci] = pipe.solve(kwargs_of(ci), pclass=pclass,
+                                      deadline_s=deadline_s)
+            except SolveShedError:
+                sheds.append(1)
+                time.sleep(0.01)  # a typed shed means back off
+                continue
+            except Exception as err:  # reported after the join
+                errors.append(repr(err))
+                return
+            lat.append(time.perf_counter() - t0)
+            counts[ci] += 1
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(n_clients)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    start.wait()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"a closed-loop client failed: {errors[:3]}")
+    return counts, last, lat, sheds, wall
+
+
+def service_pipeline(catalog) -> dict:
+    """(a): the reference bench's ``measure_throughput`` through the port's
+    ``SolvePipeline`` on ``backend="tpu"``: concurrency 1 on a 1-slot
+    pipeline (the serial baseline), then 1, 8 and 32 on an 8-slot one,
+    after warming the request's shape and its slot rungs.  Every tenant's
+    last served plan against its solo plan."""
+    from karpenter_tpu_torch.metrics import MEGABATCH_SLOTS, Registry
+    from karpenter_tpu_torch.obs.occupancy import device_busy_ms
+    from karpenter_tpu_torch.service.server import SolvePipeline
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    provs = [provisioner()]
+    clients = [serving_pods(c) for c in range(SERVICE["clients"])]
+    reg = Registry()
+    sched = BatchScheduler(backend="tpu", registry=reg)
+    st, _ = sched._tensorize_cache.tensorize(clients[0], provs, catalog)
+    t0 = time.perf_counter()
+    rung, rungs = 2, [None]
+    while rung <= SERVICE["max_slots"]:
+        rungs.append(rung)
+        rung *= 2
+    warms = [sched._tpu.warm_async(st, on_done=sched._warm_done, slots=s)
+             for s in rungs]
+    while not sched._tpu.warm_idle():
+        time.sleep(0.05)
+    warm_s = time.perf_counter() - t0
+    check(all(warms), "the service warms did not run")
+    solo = SOLO_PLANS or [plan(sched.solve(p, provs, catalog, relax=False))
+                          for p in clients]
+    h = reg.histogram(MEGABATCH_SLOTS)
+
+    def kwargs_of(ci):
+        return dict(pods=clients[ci], provisioners=provs,
+                    instance_types=catalog)
+
+    def run(concurrency, slots):
+        pipe = SolvePipeline(sched, registry=reg, max_slots=slots,
+                             admission=False)
+        try:
+            occ0 = (sum(h.sums.values()), sum(h.totals.values()))
+            busy0 = device_busy_ms()
+            names_from(100_000)
+            counts, last, lat, _s, wall = closed_loop(
+                pipe, kwargs_of, concurrency, SERVICE["seconds"])
+            busy = device_busy_ms() - busy0
+            d_sum = sum(h.sums.values()) - occ0[0]
+            d_n = sum(h.totals.values()) - occ0[1]
+        finally:
+            pipe.stop()
+        equal = [plan(r) == solo[ci] for ci, r in enumerate(last)
+                 if r is not None]
+        check(all(equal), f"a served plan at concurrency {concurrency} "
+              f"differs from its solo plan ({equal.count(False)})")
+        return dict(solves=sum(counts), solves_per_s=sum(counts) / wall,
+                    wall_s=wall, p50_ms=percentile(lat, 0.5) * 1e3,
+                    p99_ms=percentile(lat, 0.99) * 1e3,
+                    slot_occupancy_mean=(d_sum / d_n) if d_n else None,
+                    device_busy_share=busy / 1000.0 / wall,
+                    plans_equal_solo=sum(equal))
+
+    out = {"c1_serial": run(1, 1), "c1": run(1, SERVICE["max_slots"])}
+    for c in SERVICE["concurrency"][1:]:
+        out[f"c{c}"] = run(c, SERVICE["max_slots"])
+    top = f"c{SERVICE['concurrency'][-1]}"
+    c1, c32 = out["c1_serial"]["solves_per_s"], out[top]["solves_per_s"]
+    check(c32 > c1, f"{top} {c32} solves/s does not beat c1 {c1}")
+    ratio = (1.0 / out["c1"]["solves_per_s"]) / (1.0 / c1)
+    sched.stop_warms()
+    return dict(requests=len(clients), pods_per_request=len(clients[0]),
+                max_slots=SERVICE["max_slots"], seconds=SERVICE["seconds"],
+                warm_s=warm_s, **out, megabatch_speedup=c32 / c1,
+                single_latency_ratio=ratio, solo_reused=bool(SOLO_PLANS),
+                host_routed=host_routed(reg))
+
+
+def service_overload(catalog) -> dict:
+    """(b): the reference bench's ``measure_overload`` shape on
+    ``backend="tpu"``: the unloaded critical baseline (2 clients, half the
+    time), then 2 critical and 8 best_effort closed-loop clients against a
+    tight admission queue (best_effort depth 3, total 6).  The reference's
+    brownout and breaker settings are kept."""
+    from karpenter_tpu_torch.admission import (
+        BEST_EFFORT,
+        CRITICAL,
+        AdmissionControl,
+        AdmissionPolicy,
+        ClassQuota,
+    )
+    from karpenter_tpu_torch.metrics import ADMISSION_SHED, Registry
+    from karpenter_tpu_torch.service.server import SolvePipeline
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    provs = [provisioner()]
+    n = SERVICE["overload_pods"]
+    batches = {ci: overload_pods(ci, n)
+               for ci in list(range(SERVICE["critical"]))
+               + [100 + i for i in range(SERVICE["best_effort"])]}
+    reg = Registry()
+    sched = BatchScheduler(backend="tpu", registry=reg)
+    for ci in (0, 100):  # the shapes' first solves off the record
+        sched.solve(batches[ci], provs, catalog)
+
+    def kwargs_of(ci):
+        return dict(pods=batches[ci], provisioners=provs,
+                    instance_types=catalog)
+
+    pipe = SolvePipeline(sched, registry=reg, admission=AdmissionControl(
+        policy=AdmissionPolicy(), registry=reg))
+    try:
+        _c, _l, base_lat, base_sheds, _w = closed_loop(
+            pipe, kwargs_of, SERVICE["critical"], SERVICE["seconds"] / 2,
+            pclass=CRITICAL)
+    finally:
+        pipe.stop()
+    # the bench's bounds at its 4x overdrive: best_effort depth 3, total 6
+    policy = AdmissionPolicy(
+        quotas={BEST_EFFORT: ClassQuota(max_queue_depth=3)},
+        max_queue_total=6)
+    adm = AdmissionControl(policy=policy, registry=reg)
+    pipe = SolvePipeline(sched, registry=reg, admission=adm)
+    import threading
+
+    res = {}
+
+    def run(pclass, ids, deadline_s):
+        res[pclass] = closed_loop(
+            pipe, lambda ci: kwargs_of(ids[ci]), len(ids),
+            SERVICE["seconds"], pclass=pclass, deadline_s=deadline_s)
+
+    shed0 = dict(reg.counter(ADMISSION_SHED).values)
+    try:
+        threads = [
+            threading.Thread(target=run, args=(
+                CRITICAL, list(range(SERVICE["critical"])), 30.0)),
+            threading.Thread(target=run, args=(
+                BEST_EFFORT,
+                [100 + i for i in range(SERVICE["best_effort"])], 2.0))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        stats = adm.stats()
+    finally:
+        pipe.stop()
+    shed_by = {}
+    for k, v in reg.counter(ADMISSION_SHED).values.items():
+        d = v - shed0.get(k, 0.0)
+        if d:
+            lab = dict(k)
+            shed_by[f"{lab['class']}/{lab['reason']}"] = d
+    crit_lat, be_lat = res[CRITICAL][2], res[BEST_EFFORT][2]
+    crit_sheds, be_sheds = len(res[CRITICAL][3]), len(res[BEST_EFFORT][3])
+    unloaded_p99 = demo_percentile(base_lat, 0.99) * 1e3
+    crit_p99 = demo_percentile(crit_lat, 0.99) * 1e3
+    check(crit_sheds == 0, f"{crit_sheds} critical requests were shed")
+    check(be_sheds > 0, "no best_effort request was shed: admission "
+          "never engaged")
+    return dict(
+        pods_per_request=n, critical_clients=SERVICE["critical"],
+        best_effort_clients=SERVICE["best_effort"],
+        seconds=SERVICE["seconds"],
+        unloaded_critical_p99_ms=unloaded_p99,
+        unloaded_critical_served=len(base_lat),
+        unloaded_critical_sheds=len(base_sheds),
+        critical_p50_ms=demo_percentile(crit_lat, 0.5) * 1e3,
+        critical_p99_ms=crit_p99,
+        critical_p99_ratio=(crit_p99 / unloaded_p99) if unloaded_p99
+        else None, critical_p99_budget_ratio=2.0,
+        critical_served=len(crit_lat), critical_sheds=crit_sheds,
+        best_effort_p50_ms=demo_percentile(be_lat, 0.5) * 1e3,
+        best_effort_p99_ms=demo_percentile(be_lat, 0.99) * 1e3,
+        best_effort_served=len(be_lat), best_effort_sheds=be_sheds,
+        shed_by_reason=shed_by, breaker=stats["breaker"],
+        brownout_level=stats["brownout_level"],
+        queue_delay_ewma_ms=stats["queue_delay_ewma_ms"],
+        host_routed=host_routed(reg))
+
+
+def service_wire(full, limit, slice_res):
+    """(c): the slice's 100,000-pod limited batch as one ``Solve`` RPC to
+    the port's ``make_server(SolverService(...))`` on a unix socket, from
+    a raw ``grpc`` unary stub with the server's 256 MiB message limits.
+    The decoded plan against phase ``slice``'s.  Returns (launches, the
+    phase's fields)."""
+    import tempfile
+
+    import grpc
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.metrics import HIER_SOLVES, Registry
+    from karpenter_tpu_torch.obs import FlightRecorder, Tracer
+    from karpenter_tpu_torch.service import codec
+    from karpenter_tpu_torch.service import solver_pb2 as pb
+    from karpenter_tpu_torch.service.server import (
+        SERVICE as RPC_SERVICE,
+        SolverService,
+        make_server,
+    )
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    pods = deployments(40, 2500)
+    reg = Registry()
+    # the per-RPC trace's anomaly budget: the reference's 30 s default is
+    # sized for a sidecar's usual requests, and this one request runs
+    # 23-42 s on the card (PERF.md), so a 30 s budget dumps on a run-to-run
+    # spread; 300 s still flags a wedged request
+    tracer = Tracer(registry=reg, flight=FlightRecorder(
+        registry=reg, slow_trace_s=SERVICE["wire_trace_budget_s"]))
+    sched = BatchScheduler(backend="auto", registry=reg, tracer=tracer)
+    service = SolverService(sched, registry=reg)
+    sock_dir = tempfile.mkdtemp(prefix="kt-smoke-")
+    address = f"unix:{sock_dir}/solver.sock"
+    server, _port = make_server(service, host=address)
+    limits = [("grpc.max_receive_message_length", 256 * 1024 * 1024),
+              ("grpc.max_send_message_length", 256 * 1024 * 1024)]
+    channel = grpc.insecure_channel(address, options=limits)
+    try:
+        solve = channel.unary_unary(
+            f"/{RPC_SERVICE}/Solve",
+            request_serializer=pb.SolveRequest.SerializeToString,
+            response_deserializer=pb.SolveResponse.FromString)
+        t0 = time.perf_counter()
+        req = codec.encode_request(pods, [provisioner(limit)], full)
+        encode_ms = (time.perf_counter() - t0) * 1000.0
+        request_bytes = req.ByteSize()
+        hier0 = reg.counter(HIER_SOLVES).get({"path": "hierarchical"})
+        names_from()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        resp = solve(req, timeout=900.0)
+        rpc_ms = (time.perf_counter() - t0) * 1000.0
+        launches = {k.name: k.launches for k in kernels.ALL}
+        t0 = time.perf_counter()
+        res = codec.decode_response(resp)
+        decode_ms = (time.perf_counter() - t0) * 1000.0
+    finally:
+        channel.close()
+        server.stop(0)
+        service.close()
+        sched.stop_warms()
+    stats = dict(sched.hier_stats)
+    check(reg.counter(HIER_SOLVES).get({"path": "hierarchical"})
+          == hier0 + 1, "the wire request did not route hierarchically")
+    check(launches["price_step_score"] >= 1
+          and launches["price_step_score"] == stats["price_iters"],
+          "price_step_score launches != price iterations over the wire")
+    check(launches["packed_score"] == 0,
+          "the wire request launched the price-row entry")
+    equal = plan(res) == plan(slice_res)
+    tie = placements_tie(res, slice_res)
+    check(equal or tie, "the plan over the wire differs from the slice "
+          "phase's")
+    return launches, dict(
+        pods=len(pods), request_bytes=request_bytes,
+        response_bytes=resp.ByteSize(), encode_ms=encode_ms,
+        rpc_wall_ms=rpc_ms, solve_ms=resp.solve_ms, decode_ms=decode_ms,
+        hier_total_ms=stats["total_ms"], price_iters=stats["price_iters"],
+        launches=launches, nodes=len(res.nodes), cost=res.new_node_cost,
+        infeasible=len(res.infeasible), replica_id=resp.replica_id,
+        plan_equal_slice=equal, placements_tie_slice=tie,
+        trace_budget_s=SERVICE["wire_trace_budget_s"],
+        host_routed=host_routed(reg))
+
+
+def service_breaker_hang(small, full) -> dict:
+    """(d): ``KT_FAULTS="device_hang@fence:at=1"`` set while a fresh
+    ``auto`` scheduler is built; a pipeline over it with admission on.
+    The hang opens the breaker, requests are host-routed while it is not
+    closed, the guard's probe recovers the card, half-open probes pass and
+    the breaker closes.  Then the ``hier_threshold`` knob is moved at
+    runtime and a batch at the new threshold routes hierarchically."""
+    from karpenter_tpu_torch import metrics
+    from karpenter_tpu_torch.admission import (
+        AdmissionControl,
+        AdmissionPolicy,
+        CircuitBreaker,
+    )
+    from karpenter_tpu_torch.metrics import (
+        ADMISSION_BREAKER_TRANSITIONS,
+        HIER_SOLVES,
+        Registry,
+    )
+    from karpenter_tpu_torch.service.server import SolvePipeline
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+    from karpenter_tpu_torch.tuning import global_knobs
+
+    pods, provs, _catalog = degraded_batch()
+    reg = Registry()
+    os.environ["KT_FAULTS"] = "device_hang@fence:at=1"
+    try:
+        sched = BatchScheduler(backend="auto", registry=reg)
+    finally:
+        os.environ.pop("KT_FAULTS", None)
+    sched._guard.probe_interval_s = 0.25
+    transitions = []
+    t_start = time.perf_counter()
+    breaker = CircuitBreaker(
+        open_interval_s=1.0, recovery_window_s=0.5, registry=reg,
+        on_transition=lambda to: transitions.append(
+            (to, time.perf_counter() - t_start)))
+    pipe = SolvePipeline(sched, registry=reg, admission=AdmissionControl(
+        policy=AdmissionPolicy(), registry=reg, breaker=breaker))
+    served = []
+    try:
+        kwargs = dict(pods=pods, provisioners=provs, instance_types=small)
+        first = pipe.solve(dict(kwargs))
+        check(len(first.assignments) == len(pods) and not first.infeasible,
+              "the hung request left pods unseated")
+        t_hang = time.perf_counter() - t_start
+        deadline = time.perf_counter() + 60.0
+        while breaker.state != "closed" or not transitions:
+            check(time.perf_counter() < deadline,
+                  f"the breaker did not close: {transitions}")
+            res = pipe.solve(dict(kwargs))
+            check(len(res.assignments) == len(pods),
+                  "a request during the breaker cycle left pods unseated")
+            served.append(res)
+            time.sleep(0.05)
+        t_closed = time.perf_counter() - t_start
+        routed = host_routed(reg)
+        # the knob registry at runtime: hier_threshold is lattice-bound
+        knobs = global_knobs()
+        off_lattice = knobs.set("hier_threshold", 2000)
+        nd, per = SERVICE["hier_knob_pods"]
+        big = deployments(nd, per, tag="k")
+        hier0 = reg.counter(HIER_SOLVES).get({"path": "hierarchical"})
+        check(knobs.set("hier_threshold", nd * per),
+              "the hier_threshold knob refused a lattice value")
+        try:
+            t0 = time.perf_counter()
+            knob_res = pipe.solve(dict(pods=big, provisioners=provs,
+                                       instance_types=full))
+            knob_ms = (time.perf_counter() - t0) * 1000.0
+        finally:
+            knobs.reset("hier_threshold")
+        routed_hier = (reg.counter(HIER_SOLVES).get(
+            {"path": "hierarchical"}) - hier0)
+        check(routed_hier == 1, "the knob-moved batch did not route "
+              "hierarchically")
+        check(not knob_res.infeasible, "the knob-moved batch left pods "
+              "infeasible")
+    finally:
+        pipe.stop()
+        sched.stop_warms()
+    seq = [to for to, _t in transitions]
+    check(seq[:1] == ["open"] and seq[-1:] == ["closed"]
+          and "half_open" in seq,
+          f"breaker transitions {seq}")
+    check(routed > 0, "no request was host-routed while the breaker was "
+          "open")
+    return dict(
+        open_interval_s=breaker.open_interval_s,
+        recovery_window_s=breaker.recovery_window_s,
+        probe_interval_s=sched._guard.probe_interval_s,
+        transitions=transitions,
+        transitions_counted={dict(k)["to"]: v for k, v in reg.counter(
+            ADMISSION_BREAKER_TRANSITIONS).values.items()},
+        device_hangs=reg.counter(metrics.SOLVER_DEVICE_HANGS).get(),
+        degraded_solves=sum(reg.counter(
+            metrics.SOLVER_DEGRADED_SOLVES).values.values()),
+        requests_served=1 + len(served), host_routed=routed,
+        hung_request_s=t_hang, open_to_closed_s=(
+            transitions[-1][1] - transitions[0][1]),
+        start_to_closed_s=t_closed,
+        knob_off_lattice_2000_accepted=off_lattice,
+        knob_hier_threshold=nd * per, knob_batch_pods=len(big),
+        knob_batch_ms=knob_ms, knob_hier_routed=routed_hier,
+        knob_batch_nodes=len(knob_res.nodes),
+        hier_threshold_after=knobs.get("hier_threshold"))
+
+
+def phase_service(limit, slice_res):
+    """Phase 12: (a) closed-loop serving through ``SolvePipeline``, (b) the
+    4x overdrive with admission, (c) the slice's batch over gRPC, then,
+    after the guard check, (d) an injected hang through the breaker and a
+    runtime knob move.  Returns (c)'s kernel launches."""
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+
+    t_phase = time.perf_counter()
+    PHASE[0] = "service"
+    small, full = generate_catalog(full=False), generate_catalog(full=True)
+    emit("service_pipeline", **service_pipeline(small))
+    emit("service_overload", **service_overload(small))
+    launches, wire = service_wire(full, limit, slice_res)
+    emit("service_wire", **wire)
+    guard_clean("service")
+    # (d): hangs, degraded solves, host routing and the guard's warnings
+    # are expected here; its schedulers leave the watch after
+    PHASE[0] = "service_hang"
+    n_sched, n_faults = len(SCHEDULERS), len(FAULTS.records)
+    hang = service_breaker_hang(small, full)
+    expected = FAULTS.records[n_faults:]
+    check(all("device tier UNHEALTHY" in r or "flight recorder dump" in r
+              or "device-path circuit breaker" in r for r in expected),
+          f"unexpected warnings: {expected}")
+    del FAULTS.records[n_faults:]
+    del SCHEDULERS[n_sched:]
+    emit("service_breaker_hang", **hang, trapped_warnings=len(expected),
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2446,6 +2962,7 @@ def main() -> int:
             deployments(40, 2500))
         flush_launches = run("serving", phase_serving, limit, slice_res)
         gang_launches = phase_gangs()
+        service_launches = phase_service(limit, slice_res)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2456,7 +2973,7 @@ def main() -> int:
         "source": kernel.repo_path,
         "replaces": replaces,
         "launches": (launches[name] + flush_launches[name]
-                     + gang_launches[name]),
+                     + gang_launches[name] + service_launches[name]),
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],

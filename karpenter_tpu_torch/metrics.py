@@ -7,7 +7,8 @@ solver path and the controllers use it (counters, gauges, histograms, and
 duration histogram; no text exposition);
 the metric names are the reference's, so a scrape of either package reads
 the same series.  :data:`INVENTORY` carries the help text of the names the
-controllers, the cloud provider and the tracer record.
+controllers, the cloud provider, the tracer and the serving sidecar
+(admission, delta sessions, SLOs, occupancy, the knob registry) record.
 """
 
 from __future__ import annotations
@@ -198,10 +199,129 @@ TRACE_REMOTE_SPANS = "karpenter_trace_remote_spans_total"
 #: origin; the trace rooted locally)
 TRACE_REMOTE_OUTCOMES = ("adopted", "local")
 
+# serving sidecar: admission, delta sessions and their spool, SLOs,
+# occupancy, the time-series sampler, the knob registry and the
+# multi-host serving families (reference metrics.py)
+INFLIGHT_DEPTH = "karpenter_solver_inflight_depth"
+ADMISSION_ADMITTED = "karpenter_admission_admitted_total"
+ADMISSION_SHED = "karpenter_admission_shed_total"
+ADMISSION_QUEUE_DEPTH = "karpenter_admission_queue_depth"
+ADMISSION_QUEUE_DELAY = "karpenter_admission_queue_delay_seconds"
+ADMISSION_BREAKER_STATE = "karpenter_admission_breaker_state"
+ADMISSION_BREAKER_TRANSITIONS = "karpenter_admission_breaker_transitions_total"
+ADMISSION_BROWNOUT_LEVEL = "karpenter_admission_brownout_level"
+ADMISSION_HOST_ROUTED = "karpenter_admission_host_routed_total"
+DELTA_RPC = "karpenter_solver_delta_rpc_total"
+#: the full session-RPC outcome label population (KT003 zero-init source —
+#: service/delta.DeltaSessionTable and the pipeline both init from it):
+#: 'delta' (an incremental warm-start tier served the step), 'fallback_full'
+#: (a warm-start guard tripped and the step re-solved from the stripped
+#: base — the session survives), 'establish' (a full solve created or
+#: replaced the session chain), 'reseed' (a catalog/price epoch bump
+#: re-solved the chain from the stripped base server-side instead of
+#: cold-starting the client), 'session_unknown' (no live chain for the
+#: client's (session, epoch) — the client re-establishes with ONE full
+#: solve)
+DELTA_RPC_OUTCOMES = ("delta", "fallback_full", "establish", "reseed",
+                      "session_unknown", "drain_refused")
+DELTA_RPC_DURATION = "karpenter_solver_delta_rpc_duration_seconds"
+DELTA_SESSIONS = "karpenter_solver_delta_sessions"
+DELTA_EVICTIONS = "karpenter_solver_delta_session_evictions_total"
+#: eviction-reason label population (KT003).  'fault' is the injected
+#: session-table wipe (docs/RESILIENCE.md) — production never emits it.
+#: 'drain' is the graceful fleet handoff (record spooled + lease released
+#: + entry dropped so a sibling replica adopts the chain WARM); and
+#: 'lease_lost' is the zombie-writer guard — this replica's session lease
+#: was stolen after expiry, so the chain is dropped rather than served or
+#: spooled over the new owner's record.
+DELTA_EVICT_REASONS = ("ttl", "capacity", "stop", "error", "fault",
+                       "drain", "lease_lost")
+SNAPSHOT_WRITES = "karpenter_solver_session_snapshot_writes_total"
+#: snapshot write outcomes (KT003 zero-init source): 'written' (spool file
+#: atomically replaced), 'empty' (no live sessions — nothing written),
+#: 'error' (serialization or I/O failed; the previous spool survives)
+SNAPSHOT_WRITE_OUTCOMES = ("written", "empty", "error")
+SNAPSHOT_SKIPPED = "karpenter_solver_session_snapshot_skipped_total"
+#: per-session skip reasons: 'in_step' (a delta step was mid-mutation at
+#: capture — an epoch-atomic snapshot must not persist a half-applied
+#: chain), 'torn' (a step started or committed while the lock-free
+#: writer was pickling this chain; the possibly-inconsistent bytes are
+#: discarded)
+SNAPSHOT_SKIP_REASONS = ("in_step", "torn", "lease_lost")
+SNAPSHOT_RESTORE = "karpenter_solver_session_snapshot_restore_total"
+#: restore outcomes — every refusal is a COLD START plus this label, never
+#: a crash or a diverged chain (docs/RESILIENCE.md)
+SNAPSHOT_RESTORE_OUTCOMES = ("restored", "missing", "corrupt", "truncated",
+                             "version", "catalog_epoch", "error")
+SNAPSHOT_DURATION = "karpenter_solver_session_snapshot_duration_seconds"
+SNAPSHOT_SESSIONS = "karpenter_solver_session_snapshot_sessions"
+SESSION_ADOPTIONS = "karpenter_solver_session_adoptions_total"
+#: adoption outcomes (KT003 zero-init source; docs/RESILIENCE.md adoption
+#: state machine): 'adopted' (free lease claimed, record consumed, chain
+#: live), 'stolen' (the previous owner's lease had EXPIRED — a dead
+#: replica's session adopted after the lease TTL), 'lease_held' (typed
+#: refusal: a sibling replica holds an unexpired lease — exactly-one-owner
+#: by construction), 'missing' (no spool record for the session),
+#: 'refused' (the record failed the envelope checks — corrupt/version/
+#: catalog skew, also counted per-reason in the restore family), 'error'
+#: (unexpected failure; cold start)
+SESSION_ADOPTION_OUTCOMES = ("adopted", "stolen", "lease_held", "missing",
+                             "refused", "error")
+SESSION_LEASES = "karpenter_solver_session_leases_owned"
+MULTIHOST_FENCE_BYTES = "karpenter_solver_multihost_fence_bytes_total"
+#: the per-host fence's byte accounting scopes: what this process actually
+#: read (its addressable slot shards) vs what a whole-batch readback would
+#: have transferred — read/whole per host converges to 1/N at N hosts
+MULTIHOST_FENCE_SCOPES = ("read", "whole")
+MULTIHOST_SLOTS = "karpenter_solver_multihost_slots_total"
+#: per-host demux ownership of real (non-padding) megabatch slots
+MULTIHOST_SLOT_OWNERSHIP = ("owned", "foreign")
+MULTIHOST_FORWARDS = "karpenter_solver_multihost_forwards_total"
+#: forwarding-shim outcomes for foreign-slot requests
+MULTIHOST_FORWARD_OUTCOMES = ("forwarded", "error", "unrouted")
+MULTIHOST_UNIFIED = "karpenter_solver_multihost_unified_flushes_total"
+TS_SAMPLES = "karpenter_ts_samples_total"
+TS_SERIES = "karpenter_ts_series"
+TS_SAMPLE_DURATION = "karpenter_ts_sample_duration_seconds"
+SLO_REQUESTS = "karpenter_slo_requests_total"
+#: per-request SLO accounting outcomes (KT003 zero-init source): 'ok'
+#: (served), 'shed' (typed admission shed / deadline — availability-bad
+#: by the objective's definition even though the protection worked),
+#: 'error' (unexpected server failure)
+SLO_REQUEST_OUTCOMES = ("ok", "shed", "error")
+#: the priority classes objectives are declared over — the admission
+#: vocabulary (admission.parse_class), shared so the SLO engine's label
+#: population can never drift from the admission queue's
+SLO_CLASSES = ("critical", "batch", "best_effort")
+SLO_LATENCY = "karpenter_slo_latency_seconds"
+SLO_BURN_RATE = "karpenter_slo_burn_rate"
+#: the declared objectives (label population for the burn/budget gauges)
+SLO_OBJECTIVES = ("availability", "latency")
+#: the burn-rate evaluation windows (labels; seconds in obs/slo.WINDOWS)
+SLO_WINDOW_NAMES = ("5m", "1h")
+SLO_BUDGET_REMAINING = "karpenter_slo_budget_remaining"
+SLO_VERDICT = "karpenter_slo_verdict"
+OCCUPANCY_DEVICE_BUSY = "karpenter_occupancy_device_busy_share"
+OCCUPANCY_SLOT_FILL = "karpenter_occupancy_megabatch_slot_fill"
+OCCUPANCY_DELTA_INLINE = "karpenter_occupancy_delta_inline_fraction"
+TUNING_STEPS = "karpenter_tuning_steps_total"
+#: per-decision outcomes (KT003 zero-init source — tuning/controller.py
+#: inits the full knob x outcome population): 'applied' (a lattice step
+#: taken, probe window opened), 'kept' (the probe window confirmed the
+#: step), 'reverted' (the probe window regressed the objective — or a
+#: class went warn mid-probe — and the step was rolled back), 'frozen'
+#: (no move: a class burn rate was warn+), 'skipped' (no move: no
+#: windowed data, lattice edge, or knob frozen)
+TUNING_STEP_OUTCOMES = ("applied", "kept", "reverted", "frozen", "skipped")
+TUNING_KNOB_VALUE = "karpenter_tuning_knob_value"
+TUNING_STEP_DURATION = "karpenter_tuning_step_duration_seconds"
+
 #: metric inventory of the names above: name -> (type, labels, help), the
 #: reference's help text (the warm series say what the port measures: a
 #: warm is the first run of a signature on a background thread, since
-#: eager PyTorch compiles nothing)
+#: eager PyTorch compiles nothing; SESSION_ADOPTIONS and
+#: MULTIHOST_FENCE_BYTES carry no entry, their reference text citing its
+#: change history)
 INVENTORY = {
     SOLVER_COMPILE_IN_PROGRESS: (
         "gauge", (),
@@ -350,6 +470,243 @@ INVENTORY = {
         "cross-replica request renders as ONE tree in /fleetz; 'local' — "
         "no context on the wire (old client, direct call, unsampled "
         "origin) and the trace rooted locally."),
+    INFLIGHT_DEPTH: (
+        "gauge", ("backend",),
+        "Async device dispatches currently in flight in each backend's "
+        "solve pipeline (double-buffered dispatch overlaps host tensorize "
+        "of batch N+1 with device execution of batch N)."),
+    ADMISSION_ADMITTED: (
+        "counter", ("class",),
+        "Solve requests admitted into the bounded priority queue, by "
+        "priority class (critical / batch / best_effort).  Admitted does "
+        "not mean solved: a request can still expire its deadline while "
+        "queued (counted in karpenter_admission_shed_total{reason="
+        "'deadline'})."),
+    ADMISSION_SHED: (
+        "counter", ("class", "reason"),
+        "Solve requests rejected by admission control, by priority class "
+        "and reason: 'queue_full' (class or total queue-depth quota), "
+        "'rate_limited' (class token bucket empty), 'concurrency' (class "
+        "in-flight quota), 'deadline' (enqueue deadline expired before "
+        "dispatch — rejected BEFORE tensorize/dispatch so timed-out work "
+        "never burns a device round trip), 'preempted' (evicted from a "
+        "full queue by a higher-class arrival), 'brownout' (the load-"
+        "responsive degradation ladder reached its shed rung for this "
+        "class).  Every shed maps to RESOURCE_EXHAUSTED / "
+        "DEADLINE_EXCEEDED on the wire."),
+    ADMISSION_QUEUE_DEPTH: (
+        "gauge", ("class",),
+        "Requests currently held in the admission queue, per priority "
+        "class (bounded by the per-class and total queue-depth quotas)."),
+    ADMISSION_QUEUE_DELAY: (
+        "histogram", (),
+        "Enqueue-to-dispatch wait of admitted requests, seconds — the "
+        "signal driving the brownout ladder's queue-delay EWMA."),
+    ADMISSION_BREAKER_STATE: (
+        "gauge", (),
+        "Device-path circuit breaker state: 0 closed (TPU path open), "
+        "1 half-open (probe traffic only), 2 open (all solves routed to "
+        "the host FFD tier until the open interval elapses)."),
+    ADMISSION_BREAKER_TRANSITIONS: (
+        "counter", ("to",),
+        "Circuit-breaker state transitions, by target state (closed / "
+        "open / half_open).  The breaker trips on accumulated device-"
+        "health failures (hang-guard trips, degraded solves) and re-"
+        "closes only after a half-open probe window passes clean."),
+    ADMISSION_BROWNOUT_LEVEL: (
+        "gauge", (),
+        "Current brownout degradation rung (0 = normal): 1 shrink the "
+        "coalescer max-wait, 2 cap megabatch slots, 3 route best_effort "
+        "to the host FFD reference solver, 4 shed best_effort at "
+        "admission.  Driven by the queue-delay EWMA with hysteresis."),
+    ADMISSION_HOST_ROUTED: (
+        "counter", ("class", "reason"),
+        "Admitted solves routed to the host FFD tier instead of the "
+        "device path, by class and reason: 'breaker' (circuit open / "
+        "half-open non-probe) or 'brownout' (degradation ladder rung 3+ "
+        "for this class)."),
+    DELTA_RPC: (
+        "counter", ("outcome",),
+        "Session-routed Solve RPCs (delta serving, docs/ARCHITECTURE.md "
+        "round 14), by outcome: 'delta' (an incremental warm-start tier "
+        "served the step — the sub-ms fast path), 'fallback_full' (a "
+        "warm-start guard tripped and the step re-solved from the stripped "
+        "base; the session survives), 'establish' (a full solve created or "
+        "replaced the session chain), 'reseed' (a catalog/price epoch bump "
+        "re-solved the chain server-side from the stripped base), "
+        "'session_unknown' (no live chain — and no adoptable spool "
+        "record — for the client's (session, epoch); the client "
+        "re-establishes with one full solve), 'drain_refused' (an "
+        "establishment refused while this replica drains; the client "
+        "re-homes and establishes on a sibling).  A healthy steady-state "
+        "fleet is dominated by 'delta'; sustained 'session_unknown' "
+        "means the table is too small or the TTL too short "
+        "(KT_DELTA_SESSIONS / KT_DELTA_TTL_S)."),
+    DELTA_RPC_DURATION: (
+        "histogram", (),
+        "Server-side wall time of one session-routed RPC dispatch "
+        "(session lookup + warm-start step + reply snapshot), seconds."),
+    DELTA_SESSIONS: (
+        "gauge", (),
+        "Live delta sessions currently held in the per-pipeline session "
+        "table (bounded by KT_DELTA_SESSIONS; TTL KT_DELTA_TTL_S)."),
+    DELTA_EVICTIONS: (
+        "counter", ("reason",),
+        "Delta sessions evicted from the table, by reason: 'ttl' (idle "
+        "past KT_DELTA_TTL_S), 'capacity' (LRU eviction at "
+        "KT_DELTA_SESSIONS), 'stop' (pipeline shutdown), 'error' (a "
+        "delta step raised mid-apply — the half-mutated chain must not "
+        "serve another epoch, so the session dies and the client "
+        "re-establishes), 'drain' (graceful fleet handoff: the record is "
+        "spooled, the lease released and the entry dropped so a sibling "
+        "replica adopts the chain WARM — docs/RESILIENCE.md), "
+        "'lease_lost' (this replica's session lease was stolen after "
+        "expiry; the chain is dropped rather than served or spooled over "
+        "the new owner's record).  An evicted session costs its client "
+        "AT MOST one re-establishing full solve ('drain' normally costs "
+        "zero — the adopting replica serves warm).  'fault' is the "
+        "injected session-table wipe (KT_FAULTS chaos runs only)."),
+    SNAPSHOT_WRITES: (
+        "counter", ("outcome",),
+        "Session-table snapshot writes to the KT_SESSION_DIR spool "
+        "(docs/RESILIENCE.md), by outcome: 'written' (spool atomically "
+        "replaced: write-temp + fsync + rename), 'empty' (no live "
+        "sessions; nothing written), 'error' (serialization or I/O "
+        "failed — the previous spool file survives untouched)."),
+    SNAPSHOT_SKIPPED: (
+        "counter", ("reason",),
+        "Sessions left OUT of a snapshot, by reason: 'in_step' (a delta "
+        "step was mid-mutation at capture), 'torn' (a step started or "
+        "committed while the lock-free writer was pickling the chain; "
+        "its bytes are discarded), or 'lease_lost' (the session's spool "
+        "lease is now held by a sibling replica — a zombie writer must "
+        "never clobber the adopter's record).  Epoch-atomicity: a half-"
+        "applied chain is never persisted — a skipped session costs its "
+        "client one re-establish after a restart, never a replayed "
+        "half-step."),
+    SNAPSHOT_RESTORE: (
+        "counter", ("outcome",),
+        "Session-table restore attempts at pipeline startup, by outcome: "
+        "'restored' (live chains rehydrated; restarted replica serves "
+        "the next delta of every surviving session warm), 'missing' (no "
+        "spool file — plain cold start), 'corrupt' (checksum or decode "
+        "failure), 'truncated' (payload shorter than the header "
+        "declares), 'version' (snapshot format or chain-schema skew), "
+        "'catalog_epoch' (spool written under a different catalog epoch — older or newer), 'error' "
+        "(unexpected failure).  Every non-'restored' outcome degrades to "
+        "today's cold behavior — never a diverged chain."),
+    SNAPSHOT_DURATION: (
+        "histogram", (),
+        "Wall time of one session-table snapshot write or restore, "
+        "seconds."),
+    SNAPSHOT_SESSIONS: (
+        "gauge", (),
+        "Sessions persisted in the most recent snapshot write (0 until "
+        "the first write)."),
+    SESSION_LEASES: (
+        "gauge", (),
+        "Session-spool leases this replica currently holds (owned "
+        "sessions with a spool record under the shared KT_SESSION_DIR).  "
+        "0 when no spool is configured."),
+    MULTIHOST_SLOTS: (
+        "counter", ("ownership",),
+        "Real (non-padding) megabatch slots demuxed by a multi-process "
+        "fence, by ownership: 'owned' (this process held the slot's "
+        "shards, extracted and responded locally) vs 'foreign' (another "
+        "host owns it — resolved typed SlotNotOwned and handed to the "
+        "forwarding shim)."),
+    MULTIHOST_FORWARDS: (
+        "counter", ("outcome",),
+        "Foreign-slot requests routed through the cross-host result-"
+        "forwarding shim (parallel/forward.py, KT_MULTIHOST_PEERS): "
+        "'forwarded' (served by the owning host over the fleet "
+        "transport), 'error' (the owner's endpoint failed), 'unrouted' "
+        "(shim disabled / owner unknown — the typed error surfaced to "
+        "the caller)."),
+    MULTIHOST_UNIFIED: (
+        "counter", (),
+        "Mixed-bucket flushes whose dims UNIFIED into the dominant "
+        "bucket's program (solver/tpu.py unify_mega_keys): the whole "
+        "flush shared one mesh dispatch instead of serial per-bucket "
+        "ones.  Counted once per unified DISPATCH, at the collector's "
+        "group merge (the coalescer's unify join feeds the same flush, "
+        "so it does not count separately)."),
+    TS_SAMPLES: (
+        "counter", (),
+        "Registry snapshots taken by the time-series sampler "
+        "(obs/timeseries.py; one per KT_TS_INTERVAL_S tick)."),
+    TS_SERIES: (
+        "gauge", (),
+        "Distinct (family, label-set) series currently held in the "
+        "sampler's ring buffers (each bounded at KT_TS_CAPACITY points)."),
+    TS_SAMPLE_DURATION: (
+        "histogram", (),
+        "Wall time of one sampler tick (registry snapshot + occupancy "
+        "hooks), seconds — the sampler's own cost, gated <=2% of serving "
+        "by bench.py measure_ts_overhead."),
+    SLO_REQUESTS: (
+        "counter", ("class", "outcome"),
+        "Solve RPCs by priority class and SLO outcome: 'ok' served, "
+        "'shed' typed admission shed or deadline (availability-bad by "
+        "the objective even though the protection worked), 'error' "
+        "unexpected failure.  The availability objective's numerator/"
+        "denominator source."),
+    SLO_LATENCY: (
+        "histogram", ("class",),
+        "Served solve latency by priority class, seconds (solve_ms as "
+        "reported to the caller).  Windowed bucket deltas feed the "
+        "latency objective's p99-above-threshold burn rate."),
+    SLO_BURN_RATE: (
+        "gauge", ("class", "objective", "window"),
+        "Error-budget burn rate per class/objective/window: 1.0 burns "
+        "exactly the budget over the window; >= KT_SLO_FAST_BURN on a "
+        "short window pages (breach verdict).  Refreshed by each "
+        "SloEngine.evaluate() (/sloz)."),
+    SLO_BUDGET_REMAINING: (
+        "gauge", ("class", "objective"),
+        "Lifetime error budget remaining, 1.0 = untouched, <= 0 = "
+        "exhausted (breach).  budget = 1 - target."),
+    SLO_VERDICT: (
+        "gauge", ("class",),
+        "Per-class SLO verdict: -1 no_data, 0 ok, 1 warn (a window "
+        "burning faster than budget), 2 breach (budget exhausted or "
+        "fast-burn page)."),
+    OCCUPANCY_DEVICE_BUSY: (
+        "gauge", (),
+        "Share of wall time the device spent in dispatch/fence spans "
+        "over the last sampler interval (span-derived, scaled by the "
+        "tracer's sampling rate); ~1.0 = device-bound fleet, ~0 = "
+        "over-provisioned."),
+    OCCUPANCY_SLOT_FILL: (
+        "gauge", (),
+        "Mean occupied megabatch slots per dispatch over the last "
+        "sampler interval (windowed mean of "
+        "karpenter_solver_megabatch_slots); 0 when no megabatch was "
+        "dispatched in the window."),
+    OCCUPANCY_DELTA_INLINE: (
+        "gauge", (),
+        "Fraction of delta solves served inline on the RPC thread "
+        "(no dispatcher window span) over the last sampler interval — "
+        "high values mean the pipeline is idle enough that the delta "
+        "shortcut dominates."),
+    TUNING_STEPS: (
+        "counter", ("knob", "outcome"),
+        "Feedback-controller decisions by knob and outcome: 'applied' a "
+        "lattice step taken (probe window opened), 'kept' the probe "
+        "window confirmed it, 'reverted' the window regressed the "
+        "objective and the step rolled back, 'frozen' no move while a "
+        "class burn rate was warn+, 'skipped' no move (no windowed "
+        "data, lattice edge, or frozen knob)."),
+    TUNING_KNOB_VALUE: (
+        "gauge", ("knob",),
+        "Current live value of each registry knob (bools as 0/1) — the "
+        "value serving decision points snapshot, env default or tuned "
+        "override."),
+    TUNING_STEP_DURATION: (
+        "histogram", (),
+        "Wall time of one controller decision (windowed reads + SLO "
+        "evaluation + the move), seconds — the controller's own cost, "
+        "gated <= 2% of serving by bench.py measure_tuning."),
 }
 
 

@@ -6,9 +6,17 @@ flight recorder.
   off (``KT_TRACE=0``).
 - :mod:`.recorder` — ``FlightRecorder``: bounded ring of recent traces,
   events and counter deltas, dumped on anomalies.
+- :mod:`.timeseries` — the background registry sampler: bounded
+  per-series ring buffers answering windowed rate / percentile queries
+  (off by knob → falsy ``NULL_SAMPLER``).
+- :mod:`.slo` — per-priority-class objectives evaluated as multi-window
+  burn rates with error-budget accounting; the ``/sloz`` document.
+- :mod:`.occupancy` — device-busy share (CUDA events on the card),
+  megabatch slot occupancy and delta inline fraction.
+- :mod:`.protocol` — the session-protocol conformance tap.
 
-The reference package's exporters, time-series sampler, SLO engine and
-occupancy accountant are not ported yet.  Process-default singletons
+The reference package's HTTP exporters, fleet view and trace replay are
+not ported yet (ROADMAP A8b).  Process-default singletons
 mirror ``metrics.registry``: components accept an injected ``Tracer``;
 those constructed bare share :func:`default_tracer` (whose traces land in
 :func:`default_flight`), and those handed a private ``Registry`` get a
@@ -20,12 +28,17 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from .occupancy import OccupancyAccountant
 from .recorder import FlightRecorder
+from .slo import SloEngine, merge_sloz
+from .timeseries import NULL_SAMPLER, NullSampler, Sampler, sampler_for
 from .trace import NULL_SPAN, NULL_TRACE, Span, Trace, Tracer, replica_id
 
 __all__ = [
-    "FlightRecorder", "NULL_SPAN", "NULL_TRACE", "Span", "Trace", "Tracer",
-    "default_flight", "default_tracer", "replica_id", "tracer_for",
+    "FlightRecorder", "NULL_SAMPLER", "NULL_SPAN", "NULL_TRACE",
+    "NullSampler", "OccupancyAccountant", "Sampler", "SloEngine", "Span",
+    "Trace", "Tracer", "default_flight", "default_tracer", "merge_sloz",
+    "replica_id", "sampler_for", "tracer_for",
 ]
 
 # RLock: default_tracer() resolves default_flight() while holding it

@@ -73,10 +73,14 @@ DEFAULT_PRICE_ITERS = 4
 
 def hier_threshold() -> int:
     """Pod count at/above which the scheduler routes hierarchically
-    (``KT_HIER_THRESHOLD``, default 100k; 0 disables the path)."""
+    (default 100k; 0 disables the path).  Read through the knob registry
+    (tuning/knobs.py): a tuned override wins, else the registry falls back
+    to ``KT_HIER_THRESHOLD``/the default at call time."""
+    from ..tuning.knobs import global_knobs
+
     try:
-        return int(os.environ.get("KT_HIER_THRESHOLD", DEFAULT_HIER_THRESHOLD))
-    except ValueError:
+        return int(global_knobs().get("hier_threshold"))
+    except (TypeError, ValueError):
         return DEFAULT_HIER_THRESHOLD
 
 

@@ -103,11 +103,14 @@ def relax_delta_enabled() -> bool:
 
 
 def configured_iters() -> int:
-    """The iteration budget: ``KT_RELAX_ITERS`` when it parses as an int,
-    else the default — what the reference's knob registry falls back to
-    when no tuner has moved the knob."""
+    """The live iteration budget, read through the knob registry
+    (tuning/knobs.py): a tuned override wins, else the registry falls back
+    to ``KT_RELAX_ITERS``/the default at call time, so env workflows are
+    untouched until something moves the knob."""
+    from ..tuning.knobs import global_knobs
+
     try:
-        return int(os.environ.get("KT_RELAX_ITERS", DEFAULT_RELAX_ITERS))
+        return int(global_knobs().get("relax_iters"))
     except (TypeError, ValueError):
         return DEFAULT_RELAX_ITERS
 

@@ -62,6 +62,7 @@ from .. import faults as faults_mod
 from ..device import resolve_device
 from ..models import labels as L
 from ..models.tensorize import SolveTensors
+from ..obs.occupancy import record_device_ms
 from ..obs.trace import NULL_TRACE
 from ..ops.masks import (
     BIG,
@@ -1408,9 +1409,16 @@ class TpuSolver:
         """The enqueue half of one dispatch over prepared entries (all at
         one dims bucket): uploads, feasibility per distinct input set, then
         the batched group loop.  Returns the device ``(carry, ys)`` with a
-        leading slot axis; nothing here reads the device back."""
+        leading slot axis, and the dispatch's CUDA event pair (None on the
+        host) bracketing its first upload and last launch; nothing here
+        reads the device back."""
         if self._faults:
             self._faults.fire("dispatch")  # dispatch_exc raises here
+        marks = None
+        if self.device.type == "cuda":
+            marks = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+            marks[0].record()
         dims0 = entries[0]["dims"]
         if not all(e["dims"] == dims0 for e in entries):
             raise MegaBucketMismatch("megabatch entries span dims buckets")
@@ -1467,17 +1475,25 @@ class TpuSolver:
             k: np.stack([np.asarray(e["np_consts"][k]) for e in entries])
             for k in ("g_zone_spread", "g_zone_anti", "g_zone_paff",
                       "g_host_paff")})
-        return _run_scan(consts, tuple(init), NR, Z, track, flags)
+        carry, ys = _run_scan(consts, tuple(init), NR, Z, track, flags)
+        if marks is not None:
+            marks[1].record()
+        return carry, ys, marks
 
-    def _read_back(self, carry, ys):
+    def _read_back(self, carry, ys, marks=None):
         """The read-back half: the one device-to-host read of a dispatch
-        (the ``fence`` fault site: ``device_hang`` raises here)."""
+        (the ``fence`` fault site: ``device_hang`` raises here).  With the
+        dispatch's CUDA event pair it books the device time between them
+        (obs/occupancy.py ``device_busy_ms``), once per dispatch."""
         if self._faults:
             effect = self._faults.fire("fence")
             if effect is not None and effect.kind == "slow_fence":
                 self._faults.sleep(effect)
         carry_np = [x.cpu().numpy() for x in carry]
         ys_np = ys.cpu().numpy() if ys is not None else None
+        if marks is not None:
+            marks[1].synchronize()
+            record_device_ms(marks[0].elapsed_time(marks[1]))
         return carry_np, ys_np
 
     def _run_entries(self, entries: Sequence[dict], zone_key: int,
@@ -1635,10 +1651,10 @@ class TpuSolver:
             run, entry, NE, est_dims, full_dims, full_nr = \
                 self._prepare_dispatch(st, existing_nodes, max_nodes,
                                        track_assignments, mesh, False)
-            carry, ys = run(entry)  # enqueued, not read
+            carry, ys, marks = run(entry)  # enqueued, not read
         return PendingTpuSolve(
             solver=self, st=st, existing_nodes=existing_nodes, NE=NE,
-            carry=carry, ys=ys, t0=t0, track=track_assignments,
+            carry=carry, ys=ys, marks=marks, t0=t0, track=track_assignments,
             est_dims=est_dims, full_dims=full_dims, full_nr=full_nr,
             raise_on_exhaust=raise_on_exhaust,
             solve_kwargs=dict(
@@ -1769,9 +1785,11 @@ class TpuSolver:
         # per-request trace stamps: the shared device phase is recorded on
         # every request's trace as a pre-closed "megabatch" span
         t_starts = [e["r"]["trace"].now() for e in entries]
-        carry_b, ys_b = self._enqueue_entries(padded, zone_key, ct_key)
+        carry_b, ys_b, marks = self._enqueue_entries(padded, zone_key,
+                                                     ct_key)
         return PendingMegaSolve(
             solver=self, entries=entries, carry_b=carry_b, ys_b=ys_b,
+            marks=marks,
             t0=t0, t_starts=t_starts, track=track, B=B, B_pad=B_pad,
             mega_key=mega_key,
         )
@@ -1974,7 +1992,7 @@ class PendingTpuSolve:
 
     def __init__(self, solver, st, existing_nodes, NE, carry, ys, t0, track,
                  est_dims, full_dims, full_nr, raise_on_exhaust,
-                 solve_kwargs, trace=NULL_TRACE) -> None:
+                 solve_kwargs, trace=NULL_TRACE, marks=None) -> None:
         self.solver = solver
         self.trace = trace
         self.st = st
@@ -1982,6 +2000,7 @@ class PendingTpuSolve:
         self.NE = NE
         self.carry = carry
         self.ys = ys
+        self.marks = marks
         self.t0 = t0
         self.track = track
         self.est_dims = est_dims
@@ -2002,7 +2021,7 @@ class PendingTpuSolve:
     def _resolve(self) -> TpuSolveOutput:
         s = self.solver
         with self.trace.span("device_fence"), _on_stream(self.stream):
-            carry_np, ys_np = s._read_back(self.carry, self.ys)
+            carry_np, ys_np = s._read_back(self.carry, self.ys, self.marks)
         elapsed_ms = (time.perf_counter() - self.t0) * 1000.0
         s._mark_ready(_dims_key(self.full_dims if self.full_nr
                                 else self.est_dims))
@@ -2031,11 +2050,12 @@ class PendingMegaSolve:
     match ``solve_many``."""
 
     def __init__(self, solver, entries, carry_b, ys_b, t0, t_starts, track,
-                 B, B_pad, mega_key) -> None:
+                 B, B_pad, mega_key, marks=None) -> None:
         self.solver = solver
         self.entries = entries
         self.carry_b = carry_b
         self.ys_b = ys_b
+        self.marks = marks
         self.t0 = t0
         self.t_starts = t_starts
         self.track = track
@@ -2056,7 +2076,7 @@ class PendingMegaSolve:
         s = self.solver
         with _on_stream(self.stream):
             carry_rows, ys_rows = s._read_back(
-                self.carry_b, self.ys_b if self.track else None)
+                self.carry_b, self.ys_b if self.track else None, self.marks)
         elapsed_ms = (time.perf_counter() - self.t0) * 1000.0
         s._mark_ready(self.mega_key)
         outputs: List[object] = []

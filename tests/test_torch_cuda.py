@@ -19,7 +19,9 @@ entry points: a megabatch flush, a constrained delta chain, and ``submit``
 (never served cold).  The device hang guard latches on a real stall of
 the card and recovers only once it drained, an injected hang degrades and
 recovers, and a gang-bearing hierarchical batch plans the same on ``cuda``
-as on ``cpu``.
+as on ``cpu``.  The sidecar (``SolverService`` behind ``make_server``)
+answers a serving request over gRPC with the plan of a direct ``cuda``
+solve.
 """
 
 import numpy as np
@@ -324,3 +326,54 @@ def test_injected_hang_degrades_and_recovers_on_cuda(cuda):
 
     out = cs.injected_hang()
     assert out["device_hangs"] == 1 and out["recovered_equals_unfaulted"]
+
+
+def test_solver_service_round_trip_on_cuda(cuda, tmp_path):
+    """The port's sidecar on the card: ``SolverService()`` builds a
+    ``cuda`` scheduler, and a serving request sent through
+    ``make_server`` on a unix socket comes back with the plan a direct
+    ``cuda`` solve gives; ``Health`` reports the card."""
+    import grpc
+
+    import chip_smoke as cs
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.service import codec
+    from karpenter_tpu_torch.service import solver_pb2 as pb
+    from karpenter_tpu_torch.service.server import (
+        SERVICE,
+        SolverService,
+        make_server,
+    )
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    catalog = generate_catalog(full=False)
+    pods = cs.serving_pods(0)
+    service = SolverService()
+    assert service.scheduler.device.type == "cuda"
+    address = f"unix:{tmp_path}/solver.sock"
+    server, _ = make_server(service, host=address)
+    channel = grpc.insecure_channel(address)
+    try:
+        solve = channel.unary_unary(
+            f"/{SERVICE}/Solve",
+            request_serializer=pb.SolveRequest.SerializeToString,
+            response_deserializer=pb.SolveResponse.FromString)
+        health = channel.unary_unary(
+            f"/{SERVICE}/Health",
+            request_serializer=pb.HealthRequest.SerializeToString,
+            response_deserializer=pb.HealthResponse.FromString)
+        h = health(pb.HealthRequest(), timeout=60.0)
+        cs.names_from()
+        resp = solve(codec.encode_request(pods, [cs.provisioner()], catalog),
+                     timeout=300.0)
+    finally:
+        channel.close()
+        server.stop(0)
+        service.close()
+    assert (h.ok, h.backend) == (True, "cuda") and h.devices >= 1
+    cs.names_from()
+    direct = BatchScheduler(backend="auto").solve(pods, [cs.provisioner()],
+                                                  catalog)
+    got = codec.decode_response(resp)
+    assert cs.plan(got) == cs.plan(direct)
+    assert got.assignments == direct.assignments and not got.infeasible

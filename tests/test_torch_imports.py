@@ -77,9 +77,15 @@ def test_every_module_is_probed():
                  "controllers.state", "controllers.termination",
                  "controllers.provisioning", "controllers.deprovisioning",
                  "repack", "errors", "faults", "faults.plane", "gang",
-                 "solver.guard", "solver.native"):
+                 "solver.guard", "solver.native", "tuning", "tuning.knobs",
+                 "tuning.controller", "admission", "admission.policy",
+                 "admission.queue", "admission.breaker",
+                 "admission.brownout", "obs.protocol", "obs.occupancy",
+                 "obs.slo", "obs.timeseries", "parallel", "parallel.forward",
+                 "service", "service.solver_pb2", "service.codec",
+                 "service.snapshot", "service.delta", "service.server"):
         assert f"karpenter_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 53
+    assert len(MODULES) >= 74
 
 
 @pytest.mark.parametrize("module", MODULES + ["chip_smoke"])
