@@ -110,7 +110,29 @@ no result):
     ``device_hang@fence`` through a pipeline with admission on: the
     breaker opens, host-routes, half-opens and closes, then the
     ``hier_threshold`` knob moved at runtime routes a 25,000-pod batch
-    hierarchically.
+    hierarchically;
+13. operator — the deployed topology: (a) the slice's 100,000 pods under
+    the slice's limit added to the ``ClusterState`` of the port's
+    ``Operator`` (fake cloud, full catalog, ``FakeClock``) whose
+    ``RemoteScheduler`` dials a ``SolverService`` over
+    ``BatchScheduler(backend="tpu")`` on the card through a unix socket,
+    ticked until no pod is pending: tick walls, the RPC beside the
+    sidecar's ``solve_ms``, the slice's node multiset and $/hr, every pod
+    bound, the limit held, one ``price_step_scores`` launch per price
+    iteration, 0 remote fallback solves and a clear degraded gauge; the
+    sidecar's ``/metrics``, ``/statusz``, ``/tracez`` and ``/sloz``
+    answering, and the operator's ``/fleetz`` merging the sidecar; (b)
+    ``cli serve --backend tpu --obs-port`` as a subprocess on the card,
+    ``cli demo --pods 500 --backend tpu --solver-address`` against it with
+    ``CUDA_VISIBLE_DEVICES=""`` and the same demo in-process on the card:
+    equal scale-up lines, both scale-downs with ``pending=0`` and savings,
+    no remote fallback, both exit 0, the sidecar draining on SIGTERM; (c)
+    the reference bench's ``measure_delta_serving`` (20,000 pods, 40
+    steps of 8 removals and 8 adds) through the port's ``DeltaSession``
+    and ``SolverService`` over ``backend="tpu"`` on a unix socket: step
+    p50/p99, the client's view equal to the server's chain, the chain's
+    cost within 1.02 of a fresh full-solve RPC, no fallback or session
+    loss.
 
 After every phase but 11(c) and 12(d) the run checks that no device hang
 was counted, no solve was served degraded or host-routed by admission,
@@ -121,8 +143,8 @@ hand-written kernels', and the relax and screen programs' runs) are
 zeroed just before each path is driven and read just after; no
 hand-written kernel is on the relax, consolidation, repack,
 serving-request or delta path, so their kernel counts read 0 there (the
-kernel table adds phase 10(b)'s, 11(a)'s and 12(c)'s launches to the
-slice's).
+kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s and 13(a)'s launches
+to the slice's).
 The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
@@ -133,6 +155,8 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -2921,6 +2945,466 @@ def phase_service(limit, slice_res):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the operator and the sidecar's client half
+# ---------------------------------------------------------------------------
+
+#: phase 13's sizes: (a) the slice's batch through the operator over gRPC;
+#: (b) the README's full simulation (``demo --pods 500``); (c) the
+#: reference bench's ``measure_delta_serving`` defaults
+OPERATOR = {"wire": (40, 2500), "max_ticks": 8, "demo_pods": 500,
+            "demo_timeout_s": 420.0, "delta_pods": 20_000,
+            "delta_churn": 8, "delta_steps": 40, "delta_trace_sample": 16,
+            "rpc_timeout_s": 900.0}
+_DEMO_LINE = re.compile(
+    r"-> (\d+) nodes, \$([0-9.]+)/hr, pending=(\d+)"
+    r"(?:, saved \$(-?[0-9.]+)/hr)?")
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def http_get(url: str):
+    """(status, content type, body) of one GET; an HTTP error status is
+    returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return (resp.status, resp.headers.get("Content-Type", ""),
+                    resp.read().decode())
+    except urllib.error.HTTPError as err:
+        return err.code, err.headers.get("Content-Type", ""), ""
+
+
+def node_multiset(nodes) -> dict:
+    out: dict = {}
+    for n in nodes:
+        key = f"{n.instance_type}|{n.zone}|{n.capacity_type}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def obs_endpoints(base: str, want_hier: bool) -> dict:
+    """GET the sidecar's /metrics, /statusz, /tracez and /sloz: each must
+    answer 200 with Prometheus text or JSON that shows the solves."""
+    out = {}
+    code, ctype, text = http_get(f"{base}/metrics")
+    check(code == 200 and ctype.startswith("text/plain")
+          and "karpenter_admission_admitted_total" in text,
+          f"/metrics answered {code} {ctype}")
+    if want_hier:
+        check('karpenter_solver_hier_solves_total{path="hierarchical"} 1'
+              in text, "/metrics does not show the hierarchical solve")
+    out["metrics"] = dict(status=code, bytes=len(text))
+    for path in ("statusz", "tracez", "sloz"):
+        code, ctype, body = http_get(f"{base}/{path}")
+        check(code == 200 and ctype == "application/json",
+              f"/{path} answered {code} {ctype}")
+        out[path] = dict(status=code, bytes=len(body))
+        doc = json.loads(body)
+        if path == "statusz":
+            admitted = doc["admission"]["admitted"]
+            check(admitted.get("critical", 0) >= 1,
+                  f"/statusz shows no critical solve: {admitted}")
+            out[path]["admitted"] = admitted
+            out[path]["replica_id"] = doc["replica_id"]
+        elif path == "tracez":
+            check(doc["count"] >= 1 and doc["spans"],
+                  "/tracez shows no trace of the solves")
+            out[path]["traces"] = doc["count"]
+            out[path]["span_names"] = sorted(doc["spans"])
+        else:
+            check("classes" in doc and "occupancy" in doc,
+                  f"/sloz keys {sorted(doc)}")
+            out[path]["device_busy_share"] = \
+                doc["occupancy"]["device_busy_share"]
+    return out
+
+
+def operator_wire_100k(full, st, limit, slice_res):
+    """(a): the slice's 100,000 pods under the slice's limit through the
+    port's ``Operator`` whose ``RemoteScheduler`` dials a
+    ``SolverService`` over ``BatchScheduler(backend="tpu")`` on the card,
+    on a unix socket; the sidecar's obs server on a loopback port and the
+    operator's ``/fleetz`` merging it.  Returns (launches, the fields)."""
+    import tempfile
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.cloud.fake import FakeCloudProvider
+    from karpenter_tpu_torch.metrics import (
+        HIER_SOLVES,
+        REMOTE_DEGRADED,
+        REMOTE_FALLBACK_SOLVES,
+        Registry,
+    )
+    from karpenter_tpu_torch.obs import FlightRecorder, Tracer
+    from karpenter_tpu_torch.obs import export as obs_export
+    from karpenter_tpu_torch.operator import Operator
+    from karpenter_tpu_torch.service.server import SolverService, make_server
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    nd, per = OPERATOR["wire"]
+    pods = deployments(nd, per)
+    reg_s = Registry()
+    tracer = Tracer(registry=reg_s, flight=FlightRecorder(
+        registry=reg_s, slow_trace_s=SERVICE["wire_trace_budget_s"]))
+    sched = BatchScheduler(backend="tpu", registry=reg_s, tracer=tracer)
+    service = SolverService(sched, registry=reg_s)
+    address = f"unix:{tempfile.mkdtemp(prefix='kt-op-')}/solver.sock"
+    server, _ = make_server(service, host=address)
+    obs_server, obs_port = obs_export.serve(
+        reg_s, service.tracer.flight, port=0, host="127.0.0.1",
+        extra=service.statusz_extra, sloz=service.sloz,
+        tunez=service.tunez)
+    base = f"http://127.0.0.1:{obs_port}"
+    clock = FakeClock()
+    reg_o = Registry()
+    op = Operator(FakeCloudProvider(full, clock=clock), clock=clock,
+                  registry=reg_o, scheduler_backend="tpu",
+                  solver_address=address, metrics_port=free_port())
+    # the facade's 60 s RPC deadline is the reference's default; this one
+    # request runs 30-42 s on the card (PERF.md), so give it the phase's
+    # budget rather than let a slow host turn it into a local fallback
+    op.scheduler.client.timeout = OPERATOR["rpc_timeout_s"]
+    rpcs: list = []
+    solve_raw = op.scheduler.client.solve_raw
+
+    def counted(request, timeout=None):
+        t0 = time.perf_counter()
+        resp = solve_raw(request, timeout=timeout)
+        rpcs.append(dict(pods=len(request.pods),
+                         request_bytes=request.ByteSize(),
+                         rpc_wall_ms=(time.perf_counter() - t0) * 1000.0,
+                         solve_ms=resp.solve_ms,
+                         replica_id=resp.replica_id))
+        return resp
+
+    op.scheduler.client.solve_raw = counted
+    ticks: list = []
+    try:
+        op.state.apply_provisioner(provisioner(limit))
+        t0 = time.perf_counter()
+        for p in pods:
+            op.state.add_pod(p)
+        add_ms = (time.perf_counter() - t0) * 1000.0
+        hier0 = reg_s.counter(HIER_SOLVES).get({"path": "hierarchical"})
+        names_from()
+        kernels.reset_counts()
+        for _ in range(OPERATOR["max_ticks"]):
+            t0 = time.perf_counter()
+            op.tick()
+            ticks.append((time.perf_counter() - t0) * 1000.0)
+            clock.advance(1.5)
+            if rpcs and not op.state.pending_pods():
+                break
+        launches = {k.name: k.launches for k in kernels.ALL}
+        stats = dict(sched.hier_stats)
+        endpoints = obs_endpoints(base, want_hier=True)
+        op_port = op.start_http()
+        os.environ["KT_OBS_PEERS"] = base
+        try:
+            code, _ctype, body = http_get(
+                f"http://127.0.0.1:{op_port}/fleetz")
+        finally:
+            os.environ.pop("KT_OBS_PEERS", None)
+        check(code == 200, f"the operator's /fleetz answered {code}")
+        fleet = json.loads(body)
+        sidecar_id = endpoints["statusz"]["replica_id"]
+        check(fleet["partial"] is False and sidecar_id in fleet["replicas"],
+              f"/fleetz did not merge the sidecar: partial="
+              f"{fleet.get('partial')}, replicas={sorted(fleet['replicas'])}")
+        nodes = [ns.node for ns in op.state.nodes.values()]
+        pending = len(op.state.pending_pods())
+        bound = len(op.state.bindings)
+        fallback = reg_o.counter(REMOTE_FALLBACK_SOLVES).get()
+        degraded = reg_o.gauge(REMOTE_DEGRADED).get()
+        hier = reg_s.counter(HIER_SOLVES).get({"path": "hierarchical"}) \
+            - hier0
+    finally:
+        op.shutdown()
+        obs_server.shutdown()
+        server.stop(0)
+        service.close()
+        sched.stop_warms()
+    cost = sum(n.price for n in nodes)
+    shipped = cpu_bought(st, nodes)
+    same_nodes = node_multiset(nodes) == node_multiset(slice_res.nodes)
+    check(hier == 1, f"{hier} hierarchical solves on the sidecar, not 1")
+    check(launches["price_step_score"] >= 1
+          and launches["price_step_score"] == stats["price_iters"],
+          "price_step_score launches != price iterations through the "
+          "operator")
+    check(launches["packed_score"] == 0,
+          "the operator's solve launched the price-row entry")
+    # node prices cross the wire as float32: the sum agrees to 1e-6
+    check(same_nodes and abs(cost - slice_res.new_node_cost)
+          <= 1e-6 * slice_res.new_node_cost,
+          f"the operator's nodes differ from the slice's ({len(nodes)} "
+          f"at {cost} against {len(slice_res.nodes)} at "
+          f"{slice_res.new_node_cost})")
+    check(pending == 0 and bound == len(pods),
+          f"{pending} pods pending, {bound} bound of {len(pods)}")
+    check(shipped <= limit * (1.0 + 1e-6),
+          f"shipped cpu {shipped} exceeds the limit {limit}")
+    check(fallback == 0 and degraded == 0,
+          f"remote fallback solves {fallback}, degraded {degraded}")
+    return launches, dict(
+        pods=len(pods), add_pods_ms=add_ms, ticks=len(ticks),
+        tick_wall_ms=ticks, rpcs=len(rpcs), rpc=rpcs,
+        sidecar_solve_ms=[r["solve_ms"] for r in rpcs],
+        hier_total_ms=stats["total_ms"], price_iters=stats["price_iters"],
+        launches=launches, nodes=len(nodes), cost=cost,
+        node_multiset_equal_slice=same_nodes, pods_bound=bound,
+        pods_pending=pending, shipped_cpu=shipped, cpu_limit=limit,
+        remote_fallback_solves=fallback, remote_degraded=degraded,
+        obs=endpoints, fleetz_replicas=sorted(fleet["replicas"]),
+        fleetz_partial=fleet["partial"],
+        fleetz_unreachable=len(fleet["unreachable"]))
+
+
+def _cli(*args) -> list:
+    return [sys.executable, "-m", "karpenter_tpu_torch.cli", *args]
+
+
+def demo_lines(stdout: str) -> dict:
+    """The demo's scale-up and scale-down lines, parsed."""
+    found = [m for m in (_DEMO_LINE.search(ln) for ln in
+                         stdout.splitlines()) if m]
+    check(len(found) >= 2, f"demo printed {len(found)} result lines")
+    up, down = found[0], found[1]
+    return dict(
+        up_line=up.group(0), down_line=down.group(0),
+        up_nodes=int(up.group(1)), up_cost=float(up.group(2)),
+        up_pending=int(up.group(3)), down_nodes=int(down.group(1)),
+        down_cost=float(down.group(2)), down_pending=int(down.group(3)),
+        saved=float(down.group(4)))
+
+
+def operator_demo_cli() -> dict:
+    """(b): ``cli serve`` on the card as a subprocess, ``cli demo
+    --solver-address`` against it with no card visible, and the same demo
+    in-process on the card in a fresh process (the two demos run side by
+    side).  The scale-up lines must agree."""
+    from karpenter_tpu_torch.service.client import SolverClient
+
+    port, obs_port = free_port(), free_port()
+    env = {k: v for k, v in os.environ.items() if k != "KT_OBS_PEERS"}
+    pods = str(OPERATOR["demo_pods"])
+    t_start = time.perf_counter()
+    sidecar = subprocess.Popen(
+        _cli("serve", "--backend", "tpu", "--port", str(port),
+             "--obs-port", str(obs_port)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    procs = [sidecar]
+    try:
+        deadline = time.perf_counter() + 180.0
+        while True:
+            client = SolverClient(f"127.0.0.1:{port}", timeout=2.0)
+            try:
+                ok = client.health().ok
+            except Exception:  # noqa: BLE001  (not listening yet)
+                ok = False
+            finally:
+                client.close()
+            if ok:
+                break
+            check(sidecar.poll() is None and time.perf_counter() < deadline,
+                  "the sidecar never answered Health")
+            time.sleep(0.5)
+        sidecar_up_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        remote = subprocess.Popen(
+            _cli("demo", "--pods", pods, "--backend", "tpu",
+                 "--solver-address", f"127.0.0.1:{port}", "--tracez"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**env, "CUDA_VISIBLE_DEVICES": ""})
+        local = subprocess.Popen(
+            _cli("demo", "--pods", pods, "--backend", "tpu"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+        procs += [remote, local]
+        r_out, r_err = remote.communicate(timeout=OPERATOR["demo_timeout_s"])
+        remote_s = time.perf_counter() - t0
+        l_out, l_err = local.communicate(timeout=OPERATOR["demo_timeout_s"])
+        local_s = time.perf_counter() - t0
+        endpoints = obs_endpoints(f"http://127.0.0.1:{obs_port}",
+                                  want_hier=False)
+        sidecar.send_signal(signal.SIGTERM)
+        s_out, s_err = sidecar.communicate(timeout=120)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(remote.returncode == 0, f"the remote demo exited "
+          f"{remote.returncode}: {r_err[-2000:]}")
+    check(local.returncode == 0, f"the in-process demo exited "
+          f"{local.returncode}: {l_err[-2000:]}")
+    check(sidecar.returncode == 0 and "solver sidecar stopped" in s_out
+          and "draining" in s_out,
+          f"the sidecar did not drain and stop on SIGTERM "
+          f"(rc {sidecar.returncode}): {s_out[-1000:]} {s_err[-1000:]}")
+    rl, ll = demo_lines(r_out), demo_lines(l_out)
+    check(rl["up_line"] == ll["up_line"],
+          f"scale-up differs: remote {rl['up_line']!r}, in-process "
+          f"{ll['up_line']!r}")
+    for name, lines in (("remote", rl), ("in-process", ll)):
+        check(lines["up_pending"] == 0 and lines["down_pending"] == 0,
+              f"the {name} demo left pods pending")
+        check(lines["saved"] > 0, f"the {name} demo saved nothing")
+    statusz = json.loads(r_out.split("== /statusz ==", 1)[1])
+    # every local-fallback serve of RemoteScheduler logs a warning naming
+    # the fallback, and a degraded facade sets remote_degraded
+    fell_back = [ln for ln in r_err.splitlines()
+                 if "fallback" in ln or "unreachable" in ln]
+    check(not fell_back and statusz["fallbacks"]["remote_degraded"] is False,
+          f"the remote demo fell back: {fell_back[:3]}")
+    check(endpoints["statusz"]["admitted"].get("critical", 0) >= 1,
+          "the sidecar served no critical solve")
+    return dict(
+        pods=OPERATOR["demo_pods"], sidecar_up_s=sidecar_up_s,
+        remote_wall_s=remote_s, in_process_wall_s=local_s,
+        remote=rl, in_process=ll,
+        scale_down_equal=rl["down_line"] == ll["down_line"],
+        remote_fallback_warnings=len(fell_back),
+        remote_statusz_degraded=statusz["fallbacks"]["remote_degraded"],
+        sidecar_admitted=endpoints["statusz"]["admitted"],
+        sidecar_exit=sidecar.returncode,
+        sidecar_drained="draining" in s_out)
+
+
+def operator_delta_wire() -> dict:
+    """(c): the reference bench's ``measure_delta_serving`` through the
+    port: a ``DeltaSession`` against ``SolverService`` over
+    ``BatchScheduler(backend="tpu")`` on the card, on a unix socket,
+    server traces 1-in-16, client tracing off."""
+    import random
+    import tempfile
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.metrics import DELTA_RPC, Registry
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.obs.trace import Tracer
+    from karpenter_tpu_torch.service.client import (
+        DeltaSession,
+        RemoteScheduler,
+    )
+    from karpenter_tpu_torch.service.server import SolverService, make_server
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    catalog = generate_catalog(full=False)
+    provs = [provisioner()]
+    reg = Registry()
+    sched = BatchScheduler(backend="tpu", registry=reg)
+    tracer = Tracer(registry=reg, sample_every=OPERATOR["delta_trace_sample"],
+                    flight=getattr(sched.tracer, "flight", None))
+    service = SolverService(sched, registry=reg, tracer=tracer)
+    sock = f"unix:{tempfile.mkdtemp(prefix='kt-delta-')}/solver.sock"
+    server, _ = make_server(service, host=sock)
+    churn, steps = OPERATOR["delta_churn"], OPERATOR["delta_steps"]
+    try:
+        pods = warmstart_pods(OPERATOR["delta_pods"], "dw")
+        os.environ["KT_TRACE"] = "0"
+        try:
+            sess = DeltaSession(sock, timeout=600.0)
+        finally:
+            os.environ.pop("KT_TRACE", None)
+        names_from()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        cur = sess.solve(pods, provs, catalog)
+        establish_ms = (time.perf_counter() - t0) * 1000.0
+        rng = random.Random(11)
+        live = [p.name for p in pods]
+        times = []
+        for k in range(steps):
+            rm = rng.sample(live, churn)
+            gone = set(rm)
+            live = [n for n in live if n not in gone]
+            add = warmstart_pods(churn, f"dwc{k}")
+            t0 = time.perf_counter()
+            cur = sess.solve_delta(added=add, removed=rm)
+            times.append((time.perf_counter() - t0) * 1000.0)
+            live += [p.name for p in add]
+        launches = {k.name: k.launches for k in kernels.ALL}
+        steady = sorted(times[1:])  # step 0 builds the chain metadata
+        pipe = list(service._pipelines.values())[0]
+        entry = pipe._delta_tab.get(sess.session_id)
+
+        def node_map(nodes):
+            return {n.name: sorted(p.name for p in n.pods) for n in nodes}
+
+        parity = (entry is not None
+                  and entry.prev.assignments == cur.assignments
+                  and entry.prev.infeasible == cur.infeasible
+                  and node_map(entry.prev.nodes) == node_map(cur.nodes))
+        rpc = reg.counter(DELTA_RPC)
+        outcomes = {dict(k)["outcome"]: v for k, v in rpc.values.items()}
+        unexplained = (rpc.get({"outcome": "fallback_full"})
+                       + rpc.get({"outcome": "session_unknown"}))
+        remote = RemoteScheduler(sock, timeout=600.0)
+        t0 = time.perf_counter()
+        full = remote.solve([sess._pods[n] for n in live], provs, catalog)
+        fullsolve_ms = (time.perf_counter() - t0) * 1000.0
+        remote.close()
+        cost_ratio = (cur.new_node_cost / full.new_node_cost
+                      if full.new_node_cost else 1.0)
+        resends = sess.full_resends
+        sess.close()
+    finally:
+        server.stop(0)
+        service.close()
+        sched.stop_warms()
+    check(parity, "the client's merged view differs from the server's "
+          "chain state")
+    check(cost_ratio <= 1.02, f"chain cost ratio {cost_ratio} > 1.02")
+    check(unexplained == 0 and resends == 1,
+          f"{unexplained} full-solve fallbacks or session losses, "
+          f"{resends} full resends")
+    check(launches["packed_score"] == 0
+          and launches["price_step_score"] == 0,
+          "a hand-written kernel launched on the delta chain")
+    return dict(
+        pods=OPERATOR["delta_pods"], churn=churn, steps=steps,
+        trace_sample=OPERATOR["delta_trace_sample"],
+        establish_ms=establish_ms, step_ms=times,
+        p50_ms=steady[len(steady) // 2],
+        p99_ms=steady[int(0.99 * (len(steady) - 1))],
+        p50_gate_ms=3.0, fullsolve_rpc_ms=fullsolve_ms,
+        chain_cost=cur.new_node_cost, fresh_cost=full.new_node_cost,
+        cost_ratio=cost_ratio, parity=parity, rpc_outcomes=outcomes,
+        unexplained_fallbacks=unexplained, full_resends=resends,
+        launches=launches)
+
+
+def phase_operator(st, limit, slice_res):
+    """Phase 13: (a) the 100k batch through the operator over gRPC, (b)
+    the deployed two-process topology through the CLI, (c) the wire delta
+    chain.  Returns (a)'s kernel launches."""
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+
+    t_phase = time.perf_counter()
+    PHASE[0] = "operator"
+    full = generate_catalog(full=True)
+    launches, wire = operator_wire_100k(full, st, limit, slice_res)
+    emit("operator_wire_100k", **wire)
+    emit("operator_demo_cli", **operator_demo_cli())
+    emit("operator_delta_wire", **operator_delta_wire(),
+         phase_s=time.perf_counter() - t_phase)
+    guard_clean("operator")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2963,6 +3447,7 @@ def main() -> int:
         flush_launches = run("serving", phase_serving, limit, slice_res)
         gang_launches = phase_gangs()
         service_launches = phase_service(limit, slice_res)
+        operator_launches = phase_operator(st, limit, slice_res)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2973,7 +3458,8 @@ def main() -> int:
         "source": kernel.repo_path,
         "replaces": replaces,
         "launches": (launches[name] + flush_launches[name]
-                     + gang_launches[name] + service_launches[name]),
+                     + gang_launches[name] + service_launches[name]
+                     + operator_launches[name]),
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],

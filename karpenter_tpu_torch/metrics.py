@@ -1,14 +1,15 @@
 """Metrics registry of the port: counters, gauges and histograms keyed by
 (name, labels), with the metric names the ported solver path records.
 
-A copy of the reference package's ``metrics.Registry`` as far as the
-solver path and the controllers use it (counters, gauges, histograms, and
-``decorate(provider)``, which wraps every CloudProvider method in a
-duration histogram; no text exposition);
-the metric names are the reference's, so a scrape of either package reads
-the same series.  :data:`INVENTORY` carries the help text of the names the
-controllers, the cloud provider, the tracer and the serving sidecar
-(admission, delta sessions, SLOs, occupancy, the knob registry) record.
+A copy of the reference package's ``metrics.Registry``: counters, gauges
+and histograms, the Prometheus text exposition (``Registry.expose``, read
+by ``/metrics``), and ``decorate(provider)``, which wraps every
+CloudProvider method in a duration histogram.  The metric names are the
+reference's, so a scrape of either package reads the same series.
+:data:`INVENTORY` carries the help text of the names the controllers, the
+cloud provider, the tracer, the serving sidecar (admission, delta
+sessions, SLOs, occupancy, the knob registry), the sidecar's client and
+the trace replayer record.
 """
 
 from __future__ import annotations
@@ -90,6 +91,49 @@ class Registry:
 
     def histogram(self, name: str) -> Histogram:
         return self.histograms.setdefault(name, Histogram())
+
+    @staticmethod
+    def _sample(name: str, lkey: tuple, value) -> str:
+        lbl = ",".join(f'{k}="{val}"' for k, val in lkey)
+        # bucket/count samples are ints and stay exact; float samples keep
+        # the compact form
+        v = str(value) if isinstance(value, int) else f"{value:g}"
+        return f"{name}{{{lbl}}} {v}" if lbl else f"{name} {v}"
+
+    def expose(self) -> str:
+        """Prometheus text exposition: ``# HELP`` (from :data:`INVENTORY`) +
+        ``# TYPE`` per family; histograms emit cumulative ``_bucket``
+        samples with ``le`` labels (including ``+Inf``), ``_sum`` and
+        ``_count``."""
+        lines: List[str] = []
+
+        def header(name: str, kind: str) -> None:
+            inv = INVENTORY.get(name)
+            if inv is not None:
+                lines.append(f"# HELP {name} {inv[2]}")
+            lines.append(f"# TYPE {name} {kind}")
+
+        for name, c in sorted(self.counters.items()):
+            header(name, "counter")
+            for lkey, v in sorted(c.values.items()):
+                lines.append(self._sample(name, lkey, v))
+        for name, g in sorted(self.gauges.items()):
+            header(name, "gauge")
+            for lkey, v in sorted(g.values.items()):
+                lines.append(self._sample(name, lkey, v))
+        for name, h in sorted(self.histograms.items()):
+            header(name, "histogram")
+            for lkey, total in sorted(h.totals.items()):
+                cum = 0
+                for i, b in enumerate(h.buckets):
+                    cum += h.counts[lkey][i]
+                    lines.append(self._sample(
+                        f"{name}_bucket", lkey + (("le", f"{b:g}"),), cum))
+                lines.append(self._sample(
+                    f"{name}_bucket", lkey + (("le", "+Inf"),), total))
+                lines.append(self._sample(f"{name}_sum", lkey, h.sums[lkey]))
+                lines.append(self._sample(f"{name}_count", lkey, total))
+        return "\n".join(lines)
 
 
 # global default registry (schedulers accept an override)
@@ -198,6 +242,37 @@ TRACE_REMOTE_SPANS = "karpenter_trace_remote_spans_total"
 #: context on the wire — an old client, a direct call, or an unsampled
 #: origin; the trace rooted locally)
 TRACE_REMOTE_OUTCOMES = ("adopted", "local")
+
+# interruption queue, the sidecar's client and the fleet view (reference
+# metrics.py:147-148, 160-161, 262-273, 386-393)
+INTERRUPTION_RECEIVED = "karpenter_interruption_received_messages_total"
+INTERRUPTION_LATENCY = "karpenter_interruption_message_latency_seconds"
+REMOTE_FALLBACK_SOLVES = "karpenter_solver_remote_fallback_solves_total"
+REMOTE_DEGRADED = "karpenter_solver_remote_degraded"
+FLEET_ENDPOINTS = "karpenter_fleet_endpoints"
+#: endpoint-state label population (client-side, FleetClient): 'known'
+#: (configured), 'healthy' (serving), 'draining' (answered a DRAINING
+#: hint; new sessions route elsewhere until the pod dies)
+FLEET_ENDPOINT_STATES = ("known", "healthy", "draining")
+FLEET_FAILOVERS = "karpenter_fleet_failovers_total"
+#: why a session was re-homed to a different replica: 'death' (transport
+#: failure outlived the retry budget) or 'drain' (the serving replica
+#: answered the graceful-drain hint)
+FLEET_FAILOVER_REASONS = ("death", "drain")
+FLEET_PEER_FETCH = "karpenter_fleet_peer_fetch_total"
+#: per-peer /fleetz fan-out outcomes (zero-init source): 'ok' (both
+#: documents fetched and decoded), 'timeout' (the per-peer budget expired
+#: — a partitioned peer), 'error' (refused / bad JSON / HTTP failure).
+#: Failed peers are marked stale in the merge, never dropped silently.
+FLEET_PEER_FETCH_OUTCOMES = ("ok", "timeout", "error")
+# trace-replay harness (obs/replay.py)
+REPLAY_REQUESTS = "karpenter_replay_requests_total"
+#: replayed-request outcomes (zero-init source): 'ok' (served), 'shed'
+#: (typed admission shed/deadline — the replayed traffic found the
+#: server's protection posture, which is a result, not an error), 'error'
+#: (transport or server failure)
+REPLAY_OUTCOMES = ("ok", "shed", "error")
+REPLAY_LAG = "karpenter_replay_lag_seconds"
 
 # serving sidecar: admission, delta sessions and their spool, SLOs,
 # occupancy, the time-series sampler, the knob registry and the
@@ -707,6 +782,51 @@ INVENTORY = {
         "Wall time of one controller decision (windowed reads + SLO "
         "evaluation + the move), seconds — the controller's own cost, "
         "gated <= 2% of serving by bench.py measure_tuning."),
+    INTERRUPTION_RECEIVED: (
+        "counter", ("message_type",),
+        "Interruption queue messages received, by message type."),
+    INTERRUPTION_LATENCY: (
+        "histogram", ("message_type",),
+        "Delay from interruption event timestamp to handling, seconds."),
+    REMOTE_FALLBACK_SOLVES: (
+        "counter", (),
+        "Solves served by the local fallback scheduler while the remote "
+        "gRPC solver sidecar was unreachable."),
+    REMOTE_DEGRADED: (
+        "gauge", (),
+        "1 while the remote solver sidecar is unreachable and solves "
+        "degrade to the local fallback; 0 when connected."),
+    REPLAY_REQUESTS: (
+        "counter", ("outcome",),
+        "Requests driven through the real gRPC stack by the trace-replay "
+        "harness (obs/replay.py), by outcome: 'ok' (served), 'shed' "
+        "(typed admission shed or deadline — replayed traffic probing the "
+        "server's overload posture), 'error' (transport/server failure)."),
+    REPLAY_LAG: (
+        "histogram", (),
+        "Scheduled-send vs actual-send lag of each replayed request, "
+        "seconds — the replayer's own pacing fidelity (a loaded driver "
+        "host shows up here, not as silently distorted inter-arrivals)."),
+    FLEET_ENDPOINTS: (
+        "gauge", ("state",),
+        "Solver-fleet endpoints as seen by the fleet-aware client "
+        "(KT_FLEET_ENDPOINTS), by state: 'known' (configured), 'healthy' "
+        "(serving), 'draining' (answered the graceful-drain hint; new "
+        "sessions route elsewhere until the pod dies)."),
+    FLEET_FAILOVERS: (
+        "counter", ("reason",),
+        "Sessions re-homed to a different solver replica by the fleet-"
+        "aware client, by reason: 'death' (transport failure outlived "
+        "the retry budget — the replica is gone; the adopting replica "
+        "restores the chain from the shared spool and serves the next "
+        "delta warm) or 'drain' (the serving replica answered "
+        "session_state='draining'; the client proactively re-homes "
+        "before the pod dies)."),
+    FLEET_PEER_FETCH: (
+        "counter", ("outcome",),
+        "Per-peer /fleetz fan-out fetches by outcome ('ok' / 'timeout' "
+        "/ 'error'); failed peers are marked stale in the merged view "
+        "instead of degrading the whole aggregation."),
 }
 
 

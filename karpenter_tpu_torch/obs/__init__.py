@@ -14,9 +14,15 @@ flight recorder.
 - :mod:`.occupancy` — device-busy share (CUDA events on the card),
   megabatch slot occupancy and delta inline fraction.
 - :mod:`.protocol` — the session-protocol conformance tap.
+- :mod:`.export` — the ``/tracez`` / ``/statusz`` documents and the
+  sidecar's observability HTTP server (``/sloz``, ``/tunez``,
+  ``/fleetz``, ``/metrics`` too).
+- :mod:`.fleet` — the ``/fleetz`` fan-out over ``KT_OBS_PEERS`` and its
+  merge of replicas, sessions and cross-replica trace trees.
+- :mod:`.replay` — the trace-replay harness: capture, synthesize and
+  replay traffic through a real solver endpoint, with its fidelity check.
 
-The reference package's HTTP exporters, fleet view and trace replay are
-not ported yet (ROADMAP A8b).  Process-default singletons
+Process-default singletons
 mirror ``metrics.registry``: components accept an injected ``Tracer``;
 those constructed bare share :func:`default_tracer` (whose traces land in
 :func:`default_flight`), and those handed a private ``Registry`` get a

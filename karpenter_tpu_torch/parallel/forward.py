@@ -4,8 +4,8 @@ the reference package's ``parallel/forward.py``.
 On a multi-process mesh the reference's per-host fence resolves a request
 whose slot another host owns to the typed :class:`SlotNotOwned`, and this
 shim re-sends it to the owning host's serving endpoint.  The port has no
-mesh yet (ROADMAP A10) and no gRPC client (ROADMAP A8b), so a port
-process never produces a foreign slot: the forwarder is built disabled,
+multi-process mesh yet (ROADMAP A10), so a port process never produces a
+foreign slot: the forwarder is built disabled,
 and a foreign slot, should one reach it, surfaces its typed error
 (counted ``unrouted``).  ``KT_MULTIHOST_PEERS`` (the owning hosts'
 endpoints) is refused at construction with :class:`MultiHostNotPorted`
@@ -42,8 +42,8 @@ class SlotNotOwned(RuntimeError):
 
 class MultiHostNotPorted(NotImplementedError):
     """``KT_MULTIHOST_PEERS`` names peer hosts, but the port serves one host:
-    the multi-process mesh is ROADMAP A10 and the gRPC client the forward
-    rides is ROADMAP A8b."""
+    the multi-process mesh, and the wire forward over it, are ROADMAP
+    A10."""
 
 
 def _env_peers() -> List[str]:
@@ -67,7 +67,8 @@ class ResultForwarder:
             raise MultiHostNotPorted(
                 f"KT_MULTIHOST_PEERS={','.join(self.peers)!r}: cross-host "
                 "result forwarding is not ported to karpenter_tpu_torch yet "
-                "(the mesh is ROADMAP A10, the gRPC client ROADMAP A8b); "
+                "(the multi-process mesh and its wire forward are ROADMAP "
+                "A10); "
                 "unset it to serve from this host alone")
         self.registry = registry
         self.transport = transport

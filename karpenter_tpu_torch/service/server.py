@@ -10,9 +10,9 @@ reference's, so the reference's clients speak to this server unchanged.
 The port's differences: schedulers run on a CUDA device (``--device``,
 default the card; a server built without one raises), the breaker-open /
 brownout host tier is an oracle scheduler on the serving scheduler's
-device, ``Health`` reports the torch device, and the observability HTTP
-server (``--obs-port``), the gRPC client and multi-host forwarding are
-not ported yet (ROADMAP A8b, A10).
+device, and ``Health`` reports the torch device.  The gRPC client is
+``service/client.py`` and the observability HTTP server (``--obs-port``)
+``obs/export.py``; multi-host forwarding is not ported yet (ROADMAP A10).
 
 Run standalone:  python -m karpenter_tpu_torch.service.server --port 50151
 (``--device cpu --backend oracle`` on a host without a card).
@@ -1760,8 +1760,7 @@ def main(argv=None) -> int:
                              "the host")
     parser.add_argument("--obs-port", type=int, default=0,
                         help="observability HTTP port (/tracez, /statusz, "
-                             "/metrics); 0 disables.  Not ported yet: "
-                             "any other value is refused")
+                             "/sloz, /tunez, /fleetz, /metrics); 0 disables")
     parser.add_argument("--max-slots", type=int, default=None,
                         help="megabatch request slots per coalescer flush "
                              f"(default KT_MAX_SLOTS or {DEFAULT_MAX_SLOTS}; "
@@ -1800,9 +1799,6 @@ def main(argv=None) -> int:
                              "serves surviving sessions warm "
                              "(docs/RESILIENCE.md); empty disables")
     args = parser.parse_args(argv)
-    if args.obs_port:
-        parser.error("--obs-port: the observability HTTP server is not "
-                     "ported to karpenter_tpu_torch yet (ROADMAP A8b)")
     # admission knobs land in the env so every pipeline the service lazily
     # constructs (per backend) picks them up uniformly
     if args.admission is not None:
@@ -1854,7 +1850,24 @@ def main(argv=None) -> int:
           f"(backend={args.backend}, "
           f"device={service.scheduler.device}, admission="
           f"{'on' if admission_live else 'off'}, delta="
-          f"{'on' if delta_live else 'off'})")
+          f"{'on' if delta_live else 'off'})", flush=True)
+    if args.obs_port:
+        from ..obs import default_flight
+        from ..obs.export import serve as obs_serve
+
+        flight = service.tracer.flight or default_flight()
+        # a unix: gRPC address is not a TCP hostname — the obs HTTP
+        # server stays on loopback in the same-pod sidecar topology
+        obs_host = ("127.0.0.1" if args.host.startswith("unix:")
+                    else args.host)
+        # the session block rides /statusz and KT_OBS_PEERS arms the
+        # /fleetz fan-out
+        _obs_server, obs_port = obs_serve(
+            service.registry, flight, port=args.obs_port, host=obs_host,
+            extra=service.statusz_extra, sloz=service.sloz,
+            tunez=service.tunez)
+        print(f"observability on http://{obs_host}:{obs_port}/tracez "
+              f"(+/statusz /sloz /tunez /fleetz /metrics)", flush=True)
     # graceful shutdown: SIGTERM — the
     # kubelet's pod-termination signal, reinforced by deploy/solver.yaml's
     # preStop sleep — first enters the DRAIN handshake: new sessions are

@@ -539,7 +539,7 @@ def sweep_what_ifs(
                 logger.debug("sweep candidate %d not batchable; serial",
                              k, exc_info=True)
 
-    solver = scheduler._tpu
+    solver = scheduler._tpu if device_ok else None
     for idxs in buckets.values():
         for lo in range(0, len(idxs), SWEEP_MAX_SLOTS):
             chunk = idxs[lo:lo + SWEEP_MAX_SLOTS]

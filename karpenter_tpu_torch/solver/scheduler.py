@@ -417,6 +417,9 @@ class BatchScheduler:
             raise NotImplementedError(
                 "the device mesh is not ported to karpenter_tpu_torch yet")
         self.backend = backend
+        #: the device mesh the facade contract names (always None: the
+        #: port serves one device)
+        self.mesh = None
         self.registry = registry or default_registry
         # held for its flight recorder: the hang and degraded-solve anomaly
         # hooks dump there

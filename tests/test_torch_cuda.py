@@ -21,7 +21,8 @@ the card and recovers only once it drained, an injected hang degrades and
 recovers, and a gang-bearing hierarchical batch plans the same on ``cuda``
 as on ``cpu``.  The sidecar (``SolverService`` behind ``make_server``)
 answers a serving request over gRPC with the plan of a direct ``cuda``
-solve.
+solve, and an ``Operator`` dialing it provisions what an in-process
+operator on the card provisions.
 """
 
 import numpy as np
@@ -377,3 +378,56 @@ def test_solver_service_round_trip_on_cuda(cuda, tmp_path):
     got = codec.decode_response(resp)
     assert cs.plan(got) == cs.plan(direct)
     assert got.assignments == direct.assignments and not got.infeasible
+
+
+def test_remote_operator_round_trip_against_a_cuda_sidecar(cuda, tmp_path):
+    """The deployed topology in one process: an ``Operator`` whose
+    ``RemoteScheduler`` dials a ``SolverService`` on the card provisions
+    a zone-spread batch with the plan an in-process operator on the card
+    makes, with no local fallback solve."""
+    import chip_smoke as cs
+    from karpenter_tpu_torch.cloud.fake import FakeCloudProvider
+    from karpenter_tpu_torch.metrics import REMOTE_FALLBACK_SOLVES, Registry
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.operator import Operator
+    from karpenter_tpu_torch.service.server import SolverService, make_server
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    catalog = generate_catalog(full=False)
+    pods = cs.serving_pods(0)
+    service = SolverService(BatchScheduler(backend="tpu"))
+    assert service.scheduler.device.type == "cuda"
+    address = f"unix:{tmp_path}/solver.sock"
+    server, _ = make_server(service, host=address)
+
+    def provision(**kw):
+        clock = FakeClock()
+        reg = Registry()
+        op = Operator(FakeCloudProvider(catalog, clock=clock), clock=clock,
+                      registry=reg, scheduler_backend="tpu", **kw)
+        try:
+            op.state.apply_provisioner(cs.provisioner())
+            for p in pods:
+                op.state.add_pod(p)
+            cs.names_from()
+            for _ in range(3):
+                op.tick()
+                clock.advance(1.5)
+            nodes = sorted((ns.node.instance_type, ns.node.zone,
+                            ns.node.capacity_type,
+                            tuple(sorted(p.name for p in ns.node.pods)))
+                           for ns in op.state.nodes.values())
+            return (nodes, len(op.state.pending_pods()),
+                    reg.counter(REMOTE_FALLBACK_SOLVES).get())
+        finally:
+            op.shutdown()
+
+    try:
+        remote = provision(solver_address=address)
+    finally:
+        server.stop(0)
+        service.close()
+    local = provision()
+    assert remote[1] == 0 and remote[2] == 0.0
+    assert remote[:2] == local[:2]

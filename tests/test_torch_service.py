@@ -138,7 +138,7 @@ def test_service_and_main_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         server.main(["--port", "0"])
     with pytest.raises(SystemExit):
-        server.main(["--device", "cpu", "--obs-port", "9100"])
+        server.main(["--device", "cpu", "--backend", "gpu"])
 
 
 def test_health_reports_the_torch_device():
