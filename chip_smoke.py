@@ -132,7 +132,28 @@ no result):
     and ``SolverService`` over ``backend="tpu"`` on a unix socket: step
     p50/p99, the client's view equal to the server's chain, the chain's
     cost within 1.02 of a fresh full-solve RPC, no fallback or session
-    loss.
+    loss;
+14. mesh — the device mesh and multi-process execution: (a) a
+    ``torch.distributed`` job of world size 1 on nccl, ``make_mesh()``
+    over the card (shape (1, 1)) and the slice's limited 100,000-pod
+    batch through ``BatchScheduler(backend="auto", mesh=mesh)`` from
+    phase 4's node-name counter: hierarchical routing, every block wave
+    one slot-sharded dispatch, no ``mesh_serial`` flush, one
+    ``price_step_scores`` launch per price iteration, phase 4's plan node
+    for node, the limit held; its wall beside phase 4's; (b) eight virtual
+    shards on the card (``make_mesh(devices=["cuda:0"] * 8)``, shape
+    (4, 2)) against the unmeshed path on ``cuda``: the sharded single
+    solve of the 64-pod toy scenario and of the 10,000-pod bench scenario
+    (NR >= 2048, C >= 512; equal node multisets and costs), 8 serving
+    requests in one sharded flush, one block on the card (every plan
+    equal to its solo plan), the 16-candidate sweep of phase 8 (equal
+    decisions, one dispatch); (c) two ranks sharing the card over gloo
+    (``scripts/dryrun_multihost_torch.py``): the host-major layout on the
+    real ranks, an 8-slot megabatch served SPMD with each rank reading
+    exactly half the fence bytes, foreign slots typed ``SlotNotOwned``
+    with their owner, owned plans equal to serial solves, and one foreign
+    slot forwarded by ``ResultForwarder`` over gRPC to the owner's
+    ``SolverService`` (``KT_MULTIHOST_PEERS``) with the owner's plan.
 
 After every phase but 11(c) and 12(d) the run checks that no device hang
 was counted, no solve was served degraded or host-routed by admission,
@@ -143,8 +164,8 @@ hand-written kernels', and the relax and screen programs' runs) are
 zeroed just before each path is driven and read just after; no
 hand-written kernel is on the relax, consolidation, repack,
 serving-request or delta path, so their kernel counts read 0 there (the
-kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s and 13(a)'s launches
-to the slice's).
+kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s and 14(a)'s
+launches to the slice's).
 The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
@@ -291,6 +312,11 @@ def limited_solve(device, pods, catalog):
     relax_s0 = _hist_sum(sched.registry, RELAX_DURATION)
     gang_s0 = _hist_sum(sched.registry, GANG_DURATION)
     gangs0 = dict(sched.registry.counter(GANG_GANGS).values)
+    from karpenter_tpu_torch.solver import types
+
+    # the name counter the limited solve starts from: a rerun from the
+    # same state (phase 14(a)) can be held to this plan node for node
+    names_at = types._node_next
     kernels.reset_counts()
     t0 = time.perf_counter()
     res = sched.solve(pods, [provisioner(limit)], catalog)
@@ -303,6 +329,7 @@ def limited_solve(device, pods, catalog):
     check(sched.registry.counter(HIER_SOLVES).get({"path": "hierarchical"})
           == hier_before + 1, "limited solve did not route hierarchically")
     stats = dict(sched.hier_stats)
+    stats["names_at"] = names_at
     # every deployment carries a zone spread: the relax rung has nothing
     # to lift and counts one skip (its partition pass is relax_ms)
     stats["relax_outcomes"] = {o: v - relax_before[o] for o, v in
@@ -3405,6 +3432,256 @@ def phase_operator(st, limit, slice_res):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the device mesh and multi-process execution
+# ---------------------------------------------------------------------------
+
+
+#: phase 14's sizes: (b)'s serving requests and sweep candidates, (c)'s
+#: ranks and megabatch slots
+MESH = {"virtual": 8, "serving": 8, "sweep": 16, "ranks": 2, "slots": 8}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def node_types(res) -> list:
+    return sorted((n.instance_type, n.zone, n.capacity_type) for n in res.nodes)
+
+
+def mesh_hier_100k(limit, slice_stats, slice_res, slice_wall_ms):
+    """(a): a world-size-1 ``torch.distributed`` job on nccl, ``make_mesh()``
+    over the card, and the slice's limited 100k solve through
+    ``BatchScheduler(backend="auto", mesh=mesh)`` from phase 4's name
+    counter: hierarchical routing, every block wave a sharded megabatch,
+    one ``price_step_scores`` launch per price iteration, phase 4's plan."""
+    import torch
+    import torch.distributed as dist
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.metrics import (
+        HIER_SOLVES,
+        MEGABATCH_FLUSH,
+        Registry,
+    )
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.parallel.distributed import initialize
+    from karpenter_tpu_torch.parallel.mesh import make_mesh, mesh_signature
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+    from karpenter_tpu_torch.solver.tpu import TpuSolver
+
+    backend = initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda:0")
+    try:
+        check(backend == "nccl", f"the world-size-1 job runs on {backend}")
+        mesh = make_mesh()
+        check(mesh.shape == {"pods": 1, "types": 1},
+              f"make_mesh() over one card gave {mesh.shape}")
+        catalog = generate_catalog(full=True)
+        pods = deployments(40, 2500)
+        sched = BatchScheduler(backend="auto", mesh=mesh,
+                               registry=Registry())
+        sharded = []
+        real = TpuSolver._enqueue_sharded
+
+        def spy(self, padded, *a, **kw):
+            sharded.append(len(padded))
+            return real(self, padded, *a, **kw)
+
+        TpuSolver._enqueue_sharded = spy
+        try:
+            names_from(slice_stats["names_at"])
+            kernels.reset_counts()
+            res, wall_ms = _synced_ms(lambda: sched.solve(
+                pods, [provisioner(limit)], catalog))
+            launches = {k.name: k.launches for k in kernels.ALL}
+        finally:
+            TpuSolver._enqueue_sharded = real
+        stats = dict(sched.hier_stats)
+        st, _ = sched._tensorize(pods, [provisioner(limit)], catalog, (),
+                                 None)
+        shipped = cpu_bought(st, res.nodes)
+        check(sched.registry.counter(HIER_SOLVES).get(
+            {"path": "hierarchical"}) == 1,
+              "the meshed 100k solve did not route hierarchically")
+        check(len(sharded) == stats["dispatches"] and sharded,
+              f"{len(sharded)} sharded dispatches for "
+              f"{stats['dispatches']} block waves")
+        check(sched.registry.counter(MEGABATCH_FLUSH).get(
+            {"reason": "mesh_serial"}) == 0, "a meshed flush went serial")
+        check(launches["price_step_score"] == stats["price_iters"] >= 1,
+              f"price_step_score launched {launches['price_step_score']} "
+              f"times for {stats['price_iters']} price iterations")
+        check(launches["packed_score"] == 0,
+              "the meshed path launched the price-row entry")
+        check(plan(res) == plan(slice_res),
+              "the meshed 100k plan differs from phase 4's")
+        check(shipped <= limit * (1.0 + 1e-6) and not res.infeasible,
+              "the meshed 100k solve broke the limit or left pods out")
+        return launches, dict(
+            backend=backend, mesh=mesh.shape,
+            signature=[list(x) for x in mesh_signature(mesh)],
+            wall_ms=wall_ms, slice_wall_ms=slice_wall_ms,
+            blocks=stats["blocks"], waves=stats["waves"],
+            dispatches=stats["dispatches"], padded_slots=sharded,
+            price_iters=stats["price_iters"], wave_ms=stats["wave_ms"],
+            repair_ms=stats["repair_ms"], nodes=len(res.nodes),
+            cost=res.new_node_cost, infeasible=len(res.infeasible),
+            cpu_shipped=shipped, cpu_limit=limit, launches=launches,
+            plan_equal_slice=True,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / GIB)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_virtual_8():
+    """(b): eight virtual shards on the card (shape (4, 2)) against the
+    unmeshed path on ``cuda``: the sharded single solve of the 64-pod and
+    the 10,000-pod scenarios, 8 serving requests in one sharded flush, the
+    16-candidate sweep."""
+    from karpenter_tpu_torch.metrics import (
+        MEGABATCH_FLUSH,
+        MEGABATCH_SLOTS,
+        Registry,
+    )
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.parallel.mesh import make_mesh
+    from karpenter_tpu_torch.solver import consolidation as cons
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+    from karpenter_tpu_torch.solver.tpu import TpuSolver, solve_dims
+    from scripts.dryrun_multihost_torch import bench_scenario, scenario
+
+    n = MESH["virtual"]
+    mesh = make_mesh(devices=["cuda:0"] * n)
+    check(mesh.shape == {"pods": 4, "types": 2},
+          f"{n} virtual shards gave {mesh.shape}")
+    out = dict(mesh=mesh.shape)
+    solver = TpuSolver()
+
+    def solo_vs_mesh(st, **kw):
+        names_from()
+        solo, solo_ms = _synced_ms(lambda: solver.solve(st, **kw).result)
+        names_from()
+        meshed, mesh_ms = _synced_ms(
+            lambda: solver.solve(st, mesh=mesh, **kw).result)
+        check(node_types(meshed) == node_types(solo)
+              and abs(meshed.new_node_cost - solo.new_node_cost) < 1e-4
+              and meshed.infeasible == solo.infeasible == {},
+              "a sharded single solve differs from the unmeshed one")
+        return dict(nodes=len(meshed.nodes), cost=meshed.new_node_cost,
+                    solo_ms=solo_ms, mesh_ms=mesh_ms)
+
+    out["toy_64"] = solo_vs_mesh(scenario())
+    stb = bench_scenario()
+    dims = solve_dims(stb, NE=0, node_budget=2048, a=4, b=2)
+    check(dims["NR"] >= 2048 and dims["C"] >= 512,
+          f"the bench scenario's padded dims shrank: {dims}")
+    out["bench_10k"] = dict(
+        solo_vs_mesh(stb, max_nodes=2048, track_assignments=False),
+        G=dims["G"], C=dims["C"], NR=dims["NR"])
+
+    # 8 serving requests in one sharded flush
+    small = generate_catalog(full=False)
+    provs = [provisioner()]
+    clients = [serving_pods(c) for c in range(MESH["serving"])]
+    solo_sched = BatchScheduler(backend="auto")
+    solos = []
+    for pods in clients:
+        names_from()
+        solos.append(solo_sched.solve(pods, provs, small, relax=False))
+    reg = Registry()
+    sched = BatchScheduler(backend="auto", mesh=mesh, registry=reg)
+    blocks = []
+    real = sched._tpu._enqueue_entries
+
+    def spy(entries, *a, **kw):
+        blocks.append(len(entries))
+        return real(entries, *a, **kw)
+
+    sched._tpu._enqueue_entries = spy
+    results, flush_ms = flush(sched, clients, provs, small)
+    sched._tpu._enqueue_entries = real
+    blocks = blocks[:1]  # the flush's dispatch, before any later wave
+    h = reg.histogram(MEGABATCH_SLOTS)
+    equal = [plan(r) == plan(s) for r, s in zip(results, solos)]
+    check(all(equal), f"{equal.count(False)} sharded-flush plans differ "
+          "from their solo plans")
+    check(sum(h.totals.values()) == 1
+          and sum(h.sums.values()) == len(clients),
+          "the serving requests did not ride one flush")
+    check(blocks == [len(clients)],
+          f"the flush was not one block on the card: {blocks}")
+    check(reg.counter(MEGABATCH_FLUSH).get({"reason": "mesh_serial"}) == 0,
+          "the meshed flush went serial")
+    out["serving_flush"] = dict(requests=len(clients), blocks=blocks,
+                                flush_ms=flush_ms, plans_equal=sum(equal))
+
+    # the 16-candidate sweep of phase 8 on the meshed scheduler
+    cluster = sweep_cluster()
+    cands = [[i] for i in range(MESH["sweep"])]
+
+    def sweep(on):
+        return _synced_ms(lambda: cons.sweep_what_ifs(
+            on, cluster, cands, provisioners=provs, instance_types=small,
+            max_new=1))
+
+    plain, plain_ms = sweep(BatchScheduler(backend="tpu"))
+    meshed, meshed_ms = sweep(BatchScheduler(backend="tpu", mesh=mesh))
+    check(meshed.path == "batched" and meshed.dispatches == 1,
+          f"the meshed sweep was not one batched dispatch "
+          f"({meshed.path}, {meshed.dispatches})")
+    check([_decision(r) for r in meshed.results]
+          == [_decision(r) for r in plain.results],
+          "the meshed sweep's decisions differ from the unmeshed sweep's")
+    out["sweep"] = dict(candidates=len(cands), path=meshed.path,
+                        dispatches=meshed.dispatches, mesh_ms=meshed_ms,
+                        plain_ms=plain_ms)
+    return out
+
+
+def mesh_two_processes():
+    """(c): two ranks on the card over gloo (``launch_workers`` running
+    ``scripts/dryrun_multihost_torch.py``): each asserts the host-major
+    layout on the real ranks, serves one 8-slot megabatch SPMD (owned
+    range = ``slot_hosts``, half the fence bytes, foreign slots typed with
+    their owner, owned plans equal to serial solves), and rank 0 forwards
+    one foreign slot to its owner's ``SolverService`` over gRPC
+    (``KT_MULTIHOST_PEERS``)."""
+    from scripts.dryrun_multihost_torch import run
+
+    t0 = time.perf_counter()
+    recs = run(MESH["ranks"], 1, device="cuda:0", timeout=400)
+    wall_s = time.perf_counter() - t0
+    check(all(r["ok"] and r["backend"] == "gloo" for r in recs),
+          "a rank failed or did not run on gloo")
+    check(all(r["read"] * MESH["ranks"] == r["total"] for r in recs),
+          "a rank did not read exactly its share of the fence bytes")
+    check(all(r["slots"] == MESH["slots"] for r in recs),
+          "the megabatch was not padded to its 8 slots")
+    fwd = [r["forward"] for r in recs if r["forward"]["forwarded"]]
+    check(len(fwd) == 1, "no foreign slot was forwarded")
+    return dict(ranks=recs, forwarded=fwd[0], wall_s=wall_s)
+
+
+def phase_mesh(limit, slice_stats, slice_res, slice_wall_ms):
+    """Phase 14: (a) the meshed 100k solve, (b) virtual shards on one
+    card, (c) two processes on the card.  Returns (a)'s kernel launches."""
+    t_phase = time.perf_counter()
+    PHASE[0] = "mesh"
+    launches, real = mesh_hier_100k(limit, slice_stats, slice_res,
+                                    slice_wall_ms)
+    emit("mesh_hier_100k", **real)
+    emit("mesh_virtual_8", **mesh_virtual_8())
+    emit("mesh_two_processes", **mesh_two_processes(),
+         phase_s=time.perf_counter() - t_phase)
+    guard_clean("mesh")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3448,6 +3725,8 @@ def main() -> int:
         gang_launches = phase_gangs()
         service_launches = phase_service(limit, slice_res)
         operator_launches = phase_operator(st, limit, slice_res)
+        mesh_launches = phase_mesh(limit, stats, slice_res,
+                                   RECORD["slice"]["wall_ms"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3459,7 +3738,7 @@ def main() -> int:
         "replaces": replaces,
         "launches": (launches[name] + flush_launches[name]
                      + gang_launches[name] + service_launches[name]
-                     + operator_launches[name]),
+                     + operator_launches[name] + mesh_launches[name]),
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],

@@ -181,8 +181,8 @@ MEGABATCH_SLOTS = "karpenter_solver_megabatch_slots"
 MEGABATCH_FLUSH = "karpenter_solver_megabatch_flush_total"
 #: the full flush-reason label population (zero-init source): coalescer
 #: boundaries (full/deadline/bucket) plus 'mesh_serial', a meshed
-#: scheduler's serial flush — kept so dashboards read the reference's
-#: series; the port has no mesh and never counts it
+#: scheduler's flush served serially (a mesh past the slot-rung ladder,
+#: or a failed sharded dispatch)
 MEGABATCH_FLUSH_REASONS = ("full", "deadline", "bucket", "mesh_serial")
 PRECOMPILE_DURATION = "karpenter_solver_precompile_duration_seconds"
 
@@ -424,8 +424,9 @@ INVENTORY = {
         "'deadline' (max-wait expired, or the inbound queue went idle with "
         "no wait configured), 'bucket' (an arriving request's shape bucket "
         "differed from the held batch's, or the request cannot ride a "
-        "megabatch at all), 'mesh_serial' (a meshed scheduler's serial "
-        "flush; the port has no mesh)."),
+        "megabatch at all), 'mesh_serial' (a meshed scheduler served the "
+        "flush serially: its mesh has more entries than the slot-rung "
+        "ladder, or the sharded dispatch failed)."),
     PRECOMPILE_DURATION: (
         "histogram", (),
         "Wall time of one blocking bucket-grid warm pass "

@@ -1,15 +1,24 @@
-"""Cross-host megabatch result forwarding, single host only: the port of
-the reference package's ``parallel/forward.py``.
+"""Cross-host megabatch result forwarding: the port of the reference
+package's ``parallel/forward.py``.
 
-On a multi-process mesh the reference's per-host fence resolves a request
-whose slot another host owns to the typed :class:`SlotNotOwned`, and this
-shim re-sends it to the owning host's serving endpoint.  The port has no
-multi-process mesh yet (ROADMAP A10), so a port process never produces a
-foreign slot: the forwarder is built disabled,
-and a foreign slot, should one reach it, surfaces its typed error
-(counted ``unrouted``).  ``KT_MULTIHOST_PEERS`` (the owning hosts'
-endpoints) is refused at construction with :class:`MultiHostNotPorted`
-rather than silently serving every request locally.
+A multi-process mesh serves one coalesced megabatch SPMD: every serving
+process runs the same dispatch, but each reads back and extracts ONLY the
+request slots its own mesh entries hold (solver/tpu.py
+``PendingMegaSolve.results`` — the per-host fence).  A request whose RPC
+arrived on process A but whose slot landed on process B therefore resolves
+locally to the typed :class:`SlotNotOwned`, and the serving layer routes it
+through this shim: the request is re-sent to the OWNING process's serving
+endpoint over the port's ``service.client.SolverClient``, which answers it
+from its own scheduler.
+
+Knobs:
+
+- ``KT_MULTIHOST_PEERS`` — comma-separated solver endpoints, list index ==
+  the owning process's ``torch.distributed`` rank.  Unset = no peers = the
+  shim reports disabled and foreign slots surface their typed error (the
+  single-process default: foreign slots cannot exist there).
+- ``KT_MULTIHOST_FORWARD`` — ``0`` disables forwarding even with peers
+  configured (foreign slots fail typed).
 
 Tests inject ``transport=`` (a callable ``(endpoint, kwargs) -> SolveResult``)
 so the routing/demux contract is pinned without a live fleet.
@@ -19,7 +28,8 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Callable, List, Optional
+import threading
+from typing import Callable, Dict, List, Optional
 
 from ..obs.trace import NULL_TRACE
 
@@ -30,7 +40,7 @@ class SlotNotOwned(RuntimeError):
     """A megabatch slot this process holds no addressable shard of: the
     per-host fence (solver/tpu.py ``PendingMegaSolve.results``) boxes this
     into the slot's position instead of paying DCN to read it back.
-    ``owner`` is the owning process index (-1 when unknown)."""
+    ``owner`` is the owning ``torch.distributed`` rank (-1 when unknown)."""
 
     def __init__(self, slot: int, owner: int = -1) -> None:
         super().__init__(
@@ -38,12 +48,6 @@ class SlotNotOwned(RuntimeError):
             "process fenced only its addressable shards")
         self.slot = int(slot)
         self.owner = int(owner)
-
-
-class MultiHostNotPorted(NotImplementedError):
-    """``KT_MULTIHOST_PEERS`` names peer hosts, but the port serves one host:
-    the multi-process mesh, and the wire forward over it, are ROADMAP
-    A10."""
 
 
 def _env_peers() -> List[str]:
@@ -54,28 +58,25 @@ def _env_peers() -> List[str]:
 class ResultForwarder:
     """Route a foreign-slot request to the owning host's serving endpoint.
 
-    Only an injected ``transport`` forwards; without one the shim is
-    disabled and ``forward()`` raises the original :class:`SlotNotOwned`
-    (counted ``unrouted``).  Peer endpoints — ``peers=`` or
-    ``KT_MULTIHOST_PEERS`` — raise :class:`MultiHostNotPorted`."""
+    The default transport re-sends the solve over the port's
+    ``SolverClient`` (one cached client per peer endpoint) and decodes the
+    owner's response.  ``forward()`` raises the original
+    :class:`SlotNotOwned` when the shim is disabled or the owner has no
+    configured endpoint — callers treat that exactly like any other
+    per-slot typed failure."""
 
     def __init__(self, peers: Optional[List[str]] = None, registry=None,
                  transport: Optional[Callable] = None,
                  enabled: Optional[bool] = None) -> None:
         self.peers = list(peers) if peers is not None else _env_peers()
-        if self.peers and transport is None:
-            raise MultiHostNotPorted(
-                f"KT_MULTIHOST_PEERS={','.join(self.peers)!r}: cross-host "
-                "result forwarding is not ported to karpenter_tpu_torch yet "
-                "(the multi-process mesh and its wire forward are ROADMAP "
-                "A10); "
-                "unset it to serve from this host alone")
         self.registry = registry
         self.transport = transport
         if enabled is None:
             enabled = (os.environ.get("KT_MULTIHOST_FORWARD", "1") != "0"
-                       and transport is not None)
+                       and (bool(self.peers) or transport is not None))
         self._enabled = bool(enabled)
+        self._clients: Dict[str, object] = {}   # guarded-by: _lock
+        self._lock = threading.Lock()
 
     def enabled(self) -> bool:
         return self._enabled
@@ -88,8 +89,8 @@ class ResultForwarder:
         self.registry.counter(MULTIHOST_FORWARDS).inc({"outcome": outcome})
 
     def zero_init(self) -> None:
-        """KT003: every forward-outcome series exists at 0 from
-        construction of the owning pipeline."""
+        """Every forward-outcome series exists at 0 from construction of
+        the owning pipeline."""
         if self.registry is None:
             return
         from ..metrics import MULTIHOST_FORWARD_OUTCOMES, MULTIHOST_FORWARDS
@@ -102,6 +103,18 @@ class ResultForwarder:
         if 0 <= owner < len(self.peers):
             return self.peers[owner]
         return None
+
+    def _client(self, endpoint: str):
+        # lazy import: parallel/ must not pull the gRPC stack (or the
+        # service package) in at mesh-construction time
+        from ..service.client import SolverClient
+
+        with self._lock:
+            client = self._clients.get(endpoint)
+            if client is None:
+                client = SolverClient(endpoint, registry=self.registry)
+                self._clients[endpoint] = client
+            return client
 
     def forward(self, kwargs: dict, err: SlotNotOwned,
                 priority: str = ""):
@@ -136,8 +149,38 @@ class ResultForwarder:
                     raise
                 self._count("forwarded")
                 return out
-            self._count("unrouted")
-            raise err
+            if endpoint is None:
+                self._count("unrouted")
+                raise err
+            from ..service import codec
+
+            wire_tid, wire_parent = trace.wire_context()
+            req = codec.encode_request(
+                kwargs["pods"], kwargs["provisioners"],
+                kwargs["instance_types"],
+                existing_nodes=kwargs.get("existing_nodes", ()),
+                daemonsets=kwargs.get("daemonsets", ()),
+                unavailable=kwargs.get("unavailable"),
+                allow_new_nodes=kwargs.get("allow_new_nodes", True),
+                max_new_nodes=kwargs.get("max_new_nodes"),
+                priority=priority or "",
+                trace_id=wire_tid, parent_span=wire_parent,
+            )
+            try:
+                resp = self._client(endpoint).solve_raw(req)
+            except Exception as exc:
+                self._count("error")
+                raise RuntimeError(
+                    f"forwarding slot {err.slot} to owning host "
+                    f"{err.owner} ({endpoint}) failed: {exc}") from exc
+            self._count("forwarded")
+            return codec.decode_response(resp)
 
     def close(self) -> None:
-        """Nothing to release: the port holds no peer channels."""
+        with self._lock:
+            clients, self._clients = list(self._clients.values()), {}
+        for c in clients:
+            try:
+                c.close()
+            except Exception:  # best-effort shutdown
+                pass

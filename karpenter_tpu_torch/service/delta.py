@@ -40,8 +40,14 @@ of every surviving session WARM instead of paying one re-establishing
 full solve per client; ``KT_CATALOG_EPOCH`` (optional) refuses spools
 from any OTHER catalog epoch (older or newer — rollbacks too).
 
-Session state here is device-agnostic: chains carry host objects, never
-device tensors (the spool pickles every tensor's host copy).
+Meshed composition: on a mesh-configured scheduler the inline delta
+shortcut keeps its latency because the displaced-subproblem solves run on
+the HOST-LOCAL single-device programs (``BatchScheduler.solve_delta``
+under ``_host_local``; ``KT_DELTA_LOCAL=0`` reverts) — a small step must
+not pay the sharded dispatch; only the full-solve fallbacks (threshold /
+guard / reseed — whole-cluster work) keep the mesh.  Session state here is
+device-agnostic: chains carry host objects, never device tensors (the
+spool pickles every tensor's host copy).
 
 Fleet handoff: the spool is SESSION-ADDRESSABLE — one record
 file + one ownership lease per session (``service/snapshot.py``) — so on

@@ -496,8 +496,16 @@ def sweep_what_ifs(
         except Exception as err:  # noqa: BLE001
             return err
 
-    # whole-sweep device eligibility; per-candidate carve-outs below
+    # whole-sweep device eligibility; per-candidate carve-outs below.  A
+    # meshed scheduler sweeps SHARDED (the chunk's slot axis over the
+    # mesh's entries, one dispatch + one read back, like one device); only
+    # a mesh with more entries than the slot-rung ladder keeps the serial
+    # path (path="serial")
+    from .tpu import mesh_shardable
+
+    mesh = getattr(scheduler, "mesh", None)
     device_ok = (scheduler.backend in ("auto", "tpu")
+                 and mesh_shardable(mesh)
                  and scheduler._tensorize_cache is not None)
 
     N = len(all_nodes)
@@ -557,9 +565,12 @@ def sweep_what_ifs(
                     )
                     for k, e in zip(ks, entries):
                         entry_of[k] = e
+                mesh_kw = ({} if mesh is None
+                           else dict(min_slots=len(chunk), mesh=mesh,
+                                     registry=registry))
                 with trace.span("sweep_dispatch", slots=len(chunk)):
                     outs = solver.solve_many_prepared(
-                        [entry_of[k] for k in chunk])
+                        [entry_of[k] for k in chunk], **mesh_kw)
             # a failed sweep dispatch degrades the whole chunk to the
             # proven serial path (decisions unchanged)
             except Exception:  # noqa: BLE001
@@ -569,6 +580,8 @@ def sweep_what_ifs(
             dispatches += 1
             registry.histogram(CONSOLIDATION_SWEEP_SLOTS).observe(len(chunk))
             for k, out in zip(chunk, outs):
+                if isinstance(out, BaseException):
+                    continue  # serial below (boxed per-slot outcome)
                 res = out.result
                 if res.infeasible or res.nodes:
                     # not a clean "fits on the survivors" answer: the

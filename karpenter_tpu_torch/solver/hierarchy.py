@@ -565,7 +565,7 @@ def _solve_hierarchical(
     stats: Optional[dict] = None,
 ) -> Optional[SolveResult]:
     from .relax import mirror_eta
-    from .tpu import MEGA_MAX_SLOTS
+    from .tpu import MEGA_MAX_SLOTS, max_mega_slots
 
     t0 = time.perf_counter()
     registry = registry or scheduler.registry
@@ -579,10 +579,17 @@ def _solve_hierarchical(
     )
     t_part0 = time.perf_counter()
     comps = coupling_components(st)
-    if len(comps) < 2:
+    # a meshed scheduler's block waves are slot-sharded megabatches: at
+    # most as many blocks as the mesh's sharded rung ladder holds
+    mesh = scheduler.mesh
+    max_blocks = (MEGA_MAX_SLOTS if mesh is None else max_mega_slots(mesh))
+    if len(comps) < 2 or max_blocks < 2:
         _record(registry, "fallback_structure")
         return None
-    masks = partition_blocks(st, comps, MEGA_MAX_SLOTS)
+    masks = partition_blocks(st, comps, max_blocks)
+    if len(masks) < 2:
+        _record(registry, "fallback_structure")
+        return None
     budgets = block_budgets(st, masks)
     partition_ms = (time.perf_counter() - t_part0) * 1000.0
 
@@ -603,16 +610,25 @@ def _solve_hierarchical(
     wave_ms: List[float] = []
     score_ms: List[float] = []
 
+    # meshed waves pad to the first wave's slot rung and shard its slot
+    # axis over the mesh (one block of blocks per mesh entry)
+    mesh_kw = ({} if mesh is None
+               else dict(min_slots=len(masks), mesh=mesh, registry=registry))
+
     def wave(wave_entries):
         nonlocal dispatches
         tw = time.perf_counter()
         if guard is not None and guard.enabled:
             outs = guard.run_budgeted(solver.solve_many_prepared,
-                                      wave_entries, budget_frac=wave_frac)
+                                      wave_entries, budget_frac=wave_frac,
+                                      **mesh_kw)
         else:
-            outs = solver.solve_many_prepared(wave_entries)
+            outs = solver.solve_many_prepared(wave_entries, **mesh_kw)
         dispatches += 1
         wave_ms.append((time.perf_counter() - tw) * 1000.0)
+        for o in outs:
+            if isinstance(o, Exception):
+                raise o
         return outs
 
     from .guard import DeviceHang

@@ -34,7 +34,13 @@ False, and a flush that meets a new slot rung is dispatched batched.  The
 host tiers serve a batch of the ``auto`` policy only while the device is
 latched unhealthy, never for a cold shape.
 
-Not in this port yet: the mesh.
+The mesh (parallel/mesh.py): ``BatchScheduler(mesh=...)`` runs every device
+wave on the mesh — the sharded single solve, and a megabatch flush as the
+slot-sharded megabatch (one slot block per mesh entry).  A mesh with more
+entries than the slot-rung ladder holds serves flushes serially, counted
+``karpenter_solver_megabatch_flush_total{reason="mesh_serial"}``; delta
+steps run on the host-local programs (``KT_DELTA_LOCAL``), full re-solves
+keep the mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import logging
 import os
 import threading
 import time
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from .. import gang as gangmod
@@ -52,6 +59,11 @@ from ..metrics import (
     MEGABATCH_FLUSH,
     MEGABATCH_FLUSH_REASONS,
     MEGABATCH_SLOTS,
+    MULTIHOST_FENCE_BYTES,
+    MULTIHOST_FENCE_SCOPES,
+    MULTIHOST_SLOT_OWNERSHIP,
+    MULTIHOST_SLOTS,
+    MULTIHOST_UNIFIED,
     PRECOMPILE_DURATION,
     SCHEDULING_DURATION,
     SOLVER_BACKEND_DURATION,
@@ -84,7 +96,9 @@ from .reference import solve as oracle_solve
 from .tpu import (
     MEGA_MAX_SLOTS,
     TpuSolver,
+    _mesh_size,
     mega_key_dims,
+    mesh_shardable,
     unify_mega_keys,
 )
 from .types import SimNode, SolveResult
@@ -99,6 +113,13 @@ MAX_RELAXATION_WAVES = 8
 #: residue-convergence depth: still-infeasible pods re-solve against the
 #: accumulated placed state until nothing more places (or this many waves)
 MAX_RESIDUE_WAVES = 6
+
+
+def _delta_local_enabled() -> bool:
+    """Meshed delta steps run on the host-local single-device programs by
+    default (a small displaced-subproblem step must not pay the sharded
+    dispatch); ``KT_DELTA_LOCAL=0`` keeps them on the scheduler's mesh."""
+    return os.environ.get("KT_DELTA_LOCAL", "1") != "0"
 
 
 def _compile_behind_enabled() -> bool:
@@ -248,14 +269,23 @@ class _MegaCollector:
     on its own."""
 
     def __init__(self, solver: TpuSolver, guard=None, registry=None,
+                 mesh=None, on_mesh_serial=None,
                  flush_reason: Optional[str] = None) -> None:
         self.solver = solver
         self.guard = guard
         self.registry = registry
+        #: the owning scheduler's mesh: flushes dispatch the slot-sharded
+        #: megabatch and the serial fallback the sharded single solve
+        self.mesh = mesh
+        #: scheduler hook counting/logging a meshed flush that degraded to
+        #: serial dispatches (MEGABATCH_FLUSH{reason="mesh_serial"})
+        self.on_mesh_serial = on_mesh_serial
         #: the coalescer's reason for this flush, or None for direct
         #: submit_many callers; when set, the collector owns the flush count
-        #: and incs exactly one reason at dispatch
+        #: and incs exactly one reason at dispatch — "mesh_serial" if the
+        #: meshed flush degraded to serial, else this reason
         self.flush_reason = flush_reason
+        self._degraded = False
         self.entries: List[dict] = []
         #: per-slot resolver state after dispatch():
         #: ("mega", PendingMegaSolve, pos) | ("single", PendingTpuSolve)
@@ -273,6 +303,19 @@ class _MegaCollector:
     def _guarded(self, fn):
         return self.guard.run(fn) if self.guard else fn()
 
+    def _mesh_serial(self, detail: str) -> None:
+        if self.mesh is None:
+            return
+        first_degrade = not self._degraded
+        self._degraded = True
+        if self.on_mesh_serial is not None:
+            # counted in FLUSH units: a pipeline-owned flush counts at the
+            # end of dispatch(), a direct caller's on its first degraded
+            # group only
+            self.on_mesh_serial(
+                detail,
+                count=self.flush_reason is None and first_degrade)
+
     def dispatch(self) -> None:
         self._slots = [None] * len(self.entries)
         sigs: List[tuple] = []
@@ -280,7 +323,7 @@ class _MegaCollector:
         for i, e in enumerate(self.entries):
             key = self.solver.mega_signature(
                 e["st"], existing_nodes=e["existing_nodes"],
-                max_nodes=e["max_nodes"], slots=1,
+                max_nodes=e["max_nodes"], slots=1, mesh=self.mesh,
             )
             sigs.append(key)
             groups.setdefault(key, []).append(i)
@@ -301,9 +344,20 @@ class _MegaCollector:
                 merged.append([key, list(idxs), 1])
         for ukey, idxs, n_src in merged:
             idxs.sort()  # slot order == arrival order
+            if len(idxs) > 1 and not mesh_shardable(self.mesh):
+                # more mesh entries than the slot-rung ladder: no sharded
+                # megabatch exists for this mesh (bucket_key already
+                # refuses such requests; direct callers land here)
+                self._mesh_serial(
+                    f"{_mesh_size(self.mesh)}-device mesh exceeds the "
+                    f"{MEGA_MAX_SLOTS}-slot rung ladder")
+                self._dispatch_serial(idxs)
+                continue
             if len(idxs) == 1:
                 self._dispatch_serial(idxs)
                 continue
+            if n_src > 1 and self.registry is not None:
+                self.registry.counter(MULTIHOST_UNIFIED).inc()
             reqs = [
                 dict(
                     st=self.entries[i]["st"],
@@ -318,7 +372,9 @@ class _MegaCollector:
             try:
                 handle = self._guarded(
                     lambda reqs=reqs, target=target:
-                    self.solver.solve_many_async(reqs, target_dims=target))
+                    self.solver.solve_many_async(
+                        reqs, mesh=self.mesh, target_dims=target,
+                        registry=self.registry))
             except DeviceHang as err:
                 # hang at dispatch: fan to every slot — each request's
                 # finish degrades to a host tier
@@ -332,14 +388,17 @@ class _MegaCollector:
                 logger.warning(
                     "megabatch dispatch failed; serving the flush "
                     "serially", exc_info=True)
+                self._mesh_serial("megabatch construction failed; "
+                                  "flush degraded")
                 self._dispatch_serial(idxs)
                 continue
             self._observe_slots(len(idxs))
             for pos, i in enumerate(idxs):
                 self._slots[i] = ("mega", handle, pos)
         if self.flush_reason is not None and self.registry is not None:
-            self.registry.counter(MEGABATCH_FLUSH).inc(
-                {"reason": self.flush_reason})
+            # pipeline-owned flush count: exactly one reason per flush
+            reason = "mesh_serial" if self._degraded else self.flush_reason
+            self.registry.counter(MEGABATCH_FLUSH).inc({"reason": reason})
 
     def _dispatch_serial(self, idxs: List[int]) -> None:
         """Per-request async dispatches: still one enqueue per request
@@ -351,7 +410,7 @@ class _MegaCollector:
                 pending = self._guarded(
                     lambda e=e: self.solver.solve_async(
                         e["st"], existing_nodes=e["existing_nodes"],
-                        max_nodes=e["max_nodes"],
+                        max_nodes=e["max_nodes"], mesh=self.mesh,
                         raise_on_exhaust=e["raise_on_exhaust"],
                         trace=e["trace"],
                     ))
@@ -413,13 +472,10 @@ class BatchScheduler:
     ) -> None:
         if backend not in ("auto", "tpu", "native", "oracle"):
             raise ValueError(f"unknown backend {backend!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the device mesh is not ported to karpenter_tpu_torch yet")
         self.backend = backend
-        #: the device mesh the facade contract names (always None: the
-        #: port serves one device)
-        self.mesh = None
+        #: the device mesh every device wave runs on (parallel/mesh.py), or
+        #: None for the scheduler's one device
+        self.mesh = mesh
         self.registry = registry or default_registry
         # held for its flight recorder: the hang and degraded-solve anomaly
         # hooks dump there
@@ -468,6 +524,31 @@ class BatchScheduler:
         for reason in MEGABATCH_FLUSH_REASONS:
             self.registry.counter(MEGABATCH_FLUSH).inc(
                 {"reason": reason}, value=0.0)
+        # multi-host serving families: per-host fence bytes, slot
+        # ownership, unified flushes — all at 0 from construction
+        fence_c = self.registry.counter(MULTIHOST_FENCE_BYTES)
+        for scope in MULTIHOST_FENCE_SCOPES:
+            fence_c.inc({"scope": scope}, value=0.0)
+        slots_c = self.registry.counter(MULTIHOST_SLOTS)
+        for ownership in MULTIHOST_SLOT_OWNERSHIP:
+            slots_c.inc({"ownership": ownership}, value=0.0)
+        self.registry.counter(MULTIHOST_UNIFIED).inc(value=0.0)
+        # a meshed scheduler serving a would-be sharded flush serially logs
+        # the first time (the counter carries the ongoing count)
+        self._mesh_serial_lock = threading.Lock()
+        self._mesh_serial_logged = False  # guarded-by: _mesh_serial_lock
+        #: the unshardable-mesh verdict, decided here: a mesh with more
+        #: entries than the slot-rung ladder can never serve a sharded
+        #: megabatch, so bucket_key returns None at once
+        self.mega_unshardable = (
+            mesh is not None and not mesh_shardable(mesh))
+        if self.mega_unshardable and backend in ("auto", "tpu"):
+            logger.info(
+                "mesh of %d devices exceeds the %d-slot rung ladder: "
+                "megabatching is off for this scheduler; flushes serve "
+                "serially and count under karpenter_solver_megabatch_"
+                "flush_total{reason=\"mesh_serial\"}",
+                _mesh_size(mesh), MEGA_MAX_SLOTS)
         from .hierarchy import zero_init_hier_metrics
         from .relax import zero_init_metrics as relax_zero_init
         from .warmstart import zero_init_metrics
@@ -584,8 +665,21 @@ class BatchScheduler:
 
         # the relax rung is a $-for-latency trade the delta path must not
         # pay: displaced-subproblem scans always skip it, and the FULL-solve
-        # fallbacks run it only when KT_RELAX_DELTA=1
+        # fallbacks run it only when KT_RELAX_DELTA=1.  A MESHED
+        # scheduler's displaced subproblems run on the host-local programs
+        # (KT_DELTA_LOCAL): a small step must not pay the sharded
+        # dispatch; the full-solve fallbacks keep the mesh
+        use_local = self.mesh is not None and _delta_local_enabled()
+
         def _solve(pods, existing, unavail, relax=False):
+            if use_local:
+                with self._host_local():
+                    return self.solve(
+                        pods, provisioners, instance_types,
+                        existing_nodes=existing, daemonsets=daemonsets,
+                        unavailable=unavail or None, trace=trace,
+                        relax=relax,
+                    )
             return self.solve(
                 pods, provisioners, instance_types,
                 existing_nodes=existing, daemonsets=daemonsets,
@@ -647,7 +741,9 @@ class BatchScheduler:
         guarded = self.backend == "auto" and self._guard.enabled
         collector = _MegaCollector(
             self._tpu, guard=self._guard if guarded else None,
-            registry=self.registry, flush_reason=flush_reason)
+            registry=self.registry, mesh=self.mesh,
+            on_mesh_serial=self._note_mesh_serial,
+            flush_reason=flush_reason)
         self._mega_collect = collector
         try:
             pendings = [
@@ -668,6 +764,36 @@ class BatchScheduler:
         collector.dispatch()
         return pendings
 
+    def _note_mesh_serial(self, detail: str, count: bool = True) -> None:
+        """A meshed scheduler served (or will serve) a would-be sharded
+        megabatch serially: count it, and log the first occurrence with
+        the why.  ``count=False`` logs only — a pipeline-owned flush counts
+        once at collector dispatch."""
+        if count:
+            self.registry.counter(MEGABATCH_FLUSH).inc(
+                {"reason": "mesh_serial"})
+        with self._mesh_serial_lock:
+            first = not self._mesh_serial_logged
+            self._mesh_serial_logged = True
+        if first:
+            logger.info(
+                "meshed scheduler served a megabatch flush serially (%s); "
+                "counted under karpenter_solver_megabatch_flush_total"
+                "{reason=\"mesh_serial\"}", detail)
+
+    @contextmanager
+    def _host_local(self):
+        """Scoped mesh override: the enclosed solve waves run the
+        host-local single-device programs (mesh=None) instead of the
+        scheduler's mesh — the delta path's route for small displaced-
+        subproblem steps.  Safe under the scheduler's single-dispatcher
+        contract (one thread owns every solve section)."""
+        prev, self.mesh = self.mesh, None
+        try:
+            yield
+        finally:
+            self.mesh = prev
+
     def unify_buckets(self, held_key: tuple,
                       new_key: tuple) -> Optional[tuple]:
         """Mixed-bucket unification hook for a coalescer: the DOMINANT of two
@@ -678,11 +804,18 @@ class BatchScheduler:
     def bucket_key(self, kwargs: dict) -> Optional[tuple]:
         """Megabatch shape bucket of one queued solve request, or None when
         it cannot ride a megabatch (non-device backend, oracle routing,
-        device carve-outs, unhealthy device, cache disabled).  Every
-        signature is served on the device the first time it is seen, so a
-        new shape buckets like a seen one.  Single-thread, like submit: the tensorize it performs
-        lands in the cache, so the real solve's tensorize is a hit."""
+        device carve-outs, unhealthy device, cache disabled, or a mesh with
+        more entries than the slot-rung ladder).  Every signature is served
+        on the device the first time it is seen, so a new shape buckets like
+        a seen one; the key carries the mesh fingerprint, so requests
+        against different meshes never coalesce.  Single-thread, like
+        submit: the tensorize it performs lands in the cache, so the real
+        solve's tensorize is a hit."""
         if self.backend not in ("auto", "tpu"):
+            return None
+        if self.mega_unshardable:
+            # decided (and logged) at construction; the pipeline counts the
+            # resulting single-request flushes under mesh_serial
             return None
         if self._tensorize_cache is None:
             return None  # without cached tensorize the probe would pay a
@@ -711,7 +844,8 @@ class BatchScheduler:
             new_budget = len(hardened) if max_new is None else max_new
             max_slots = len(existing) + new_budget
             return self._tpu.mega_signature(
-                st, existing_nodes=existing, max_nodes=max_slots, slots=1)
+                st, existing_nodes=existing, max_nodes=max_slots, slots=1,
+                mesh=self.mesh)
         # the bucket probe must never fail a request — an unbucketable
         # request just solves on the single path, where a real error
         # surfaces with full context
@@ -923,14 +1057,14 @@ class BatchScheduler:
                                         daemonsets, profiles):
             # provisioning shape: batch solved against the current cluster
             if self._tpu.warm_async(st, existing_nodes=existing_nodes,
-                                    on_done=self._warm_done):
+                                    mesh=self.mesh, on_done=self._warm_done):
                 started += 1
             if existing_nodes:
                 # consolidation what-if shape: a small repack against the
                 # cluster with at most one new node
                 if self._tpu.warm_async(
                     st, existing_nodes=existing_nodes,
-                    max_nodes=len(existing_nodes) + 1,
+                    max_nodes=len(existing_nodes) + 1, mesh=self.mesh,
                     on_done=self._warm_done,
                 ):
                     started += 1
@@ -965,7 +1099,10 @@ class BatchScheduler:
             existing_nodes=existing_nodes, profiles=profiles,
         )
         if (self.backend in ("auto", "tpu") and self.compile_behind
-                and self._guard.healthy):
+                and self._guard.healthy and mesh_shardable(self.mesh)):
+            # a meshed scheduler warms the sharded rung ladder: each slot
+            # count resolves to its sharded rung (floored at the mesh's
+            # entry count) and signature dedupe collapses repeats
             rungs = sorted({
                 s for s in (mega_slots or self.WARM_MEGA_SLOTS)
                 if 2 <= s <= MEGA_MAX_SLOTS
@@ -975,7 +1112,7 @@ class BatchScheduler:
                 for s in rungs:
                     if self._tpu.warm_async(
                         st, existing_nodes=existing_nodes, slots=s,
-                        on_done=self._warm_done,
+                        mesh=self.mesh, on_done=self._warm_done,
                     ):
                         started += 1
         if wait and started:
@@ -1703,7 +1840,7 @@ class BatchScheduler:
             try:
                 pending = _call(
                     self._tpu.solve_async, st, existing_nodes=all_existing,
-                    max_nodes=max_slots, trace=trace)
+                    max_nodes=max_slots, mesh=self.mesh, trace=trace)
             except DeviceHang:
                 return _hung("device dispatch")
 
@@ -1718,7 +1855,7 @@ class BatchScheduler:
         try:
             out = _call(
                 self._tpu.solve, st, existing_nodes=all_existing,
-                max_nodes=max_slots, trace=trace)
+                max_nodes=max_slots, mesh=self.mesh, trace=trace)
         except DeviceHang:
             # the guard latched the device tier unhealthy; this batch and
             # every one until the probe answers are served by a host tier

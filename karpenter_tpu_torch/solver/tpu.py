@@ -41,8 +41,20 @@ choke points: ``dispatch`` before every enqueue (``_enqueue_entries``) and
 ``slow_fence`` effect is slept there).  Unset, the plane is falsy and
 costs one bool check.
 
-Left out of this port for now: the mesh (every ``mesh`` argument accepts
-only None) and the multi-host fence.
+The mesh (parallel/mesh.py): a meshed solve pads G and C (and NR) to the
+mesh's axis divisors like the reference and computes feasibility block by
+block, each (pods, types) block of ``F`` and of ``dom_ok`` on its own mesh
+device, assembled on the device of the scan.  The scan itself runs
+replicated on that device: the reference also shards the scan's node-slot
+axis, which in eager PyTorch would put collectives inside a group loop
+that already makes thousands of launches per step — sharding is a layout,
+not a semantic, and the plans are the reference's.  A meshed megabatch
+splits the padded slot axis into one contiguous block per mesh entry
+(``slot_mesh``), each device's run of entries enqueued as one block on its
+own stream (so virtual shards of one card cost one group loop, while k
+cards cost k group loops issued from one thread); in a multi-process job
+a rank enqueues and reads back only the blocks it owns (the per-host
+fence) and types the others :class:`SlotNotOwned`.
 """
 
 from __future__ import annotations
@@ -82,54 +94,72 @@ BIGN = float(np.float32(1e9))  # "unbounded" node/pod counts
 MEGA_MAX_SLOTS = 32
 
 
-def _no_mesh(mesh) -> None:
-    """The mesh is not ported: every ``mesh`` argument accepts only None."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the device mesh is not ported to karpenter_tpu_torch yet")
+def _mesh_divs(mesh) -> Tuple[int, int]:
+    """The (pods, types) axis divisors a meshed solve pads G / NR and C to."""
+    if mesh is None:
+        return 1, 1
+    from ..parallel.mesh import POD_AXIS, TYPE_AXIS
+
+    return mesh.shape[POD_AXIS], mesh.shape[TYPE_AXIS]
 
 
 def _mega_rung(n: int, n_dev: int = 1) -> int:
     """Pad the request-slot axis to a power-of-two rung (1, 2, 4, ..., 32):
     bucket keys, ``MEGABATCH_SLOTS`` and the padding-isolation contract
-    stay the reference's.  ``n_dev`` is the reference's sharded floor,
-    always 1 here."""
+    stay the reference's.  ``n_dev`` > 1 is the sharded megabatch: the
+    ladder floors at the mesh's entry count and doubles from there, so the
+    slot axis always divides evenly over the entries, and never passes
+    MEGA_MAX_SLOTS (24 entries -> {24}; 6 -> {6, 12, 24})."""
     r = max(1, n_dev)
     while r < min(max(1, n), MEGA_MAX_SLOTS) and r * 2 <= MEGA_MAX_SLOTS:
         r *= 2
     return r
 
 
+def _mesh_size(mesh) -> int:
+    return 1 if mesh is None else int(mesh.devices.size)
+
+
 def mesh_shardable(mesh) -> bool:
-    """True when the megabatch slot axis can serve ``mesh``: always for the
-    port's only mesh, None."""
-    _no_mesh(mesh)
-    return True
+    """True when the megabatch slot axis can shard over ``mesh``: the entry
+    count must fit inside the slot-rung ladder (a 64-entry mesh cannot pad
+    a <= 32-slot batch to one block per entry — such schedulers keep the
+    sharded single solve and count mesh_serial flushes)."""
+    return _mesh_size(mesh) <= MEGA_MAX_SLOTS
 
 
 def max_mega_slots(mesh) -> int:
-    """Largest megabatch flush the scheduler can serve: MEGA_MAX_SLOTS."""
-    _no_mesh(mesh)
-    return _mega_rung(MEGA_MAX_SLOTS)
+    """Largest megabatch flush this mesh can serve on the sharded rung
+    ladder (MEGA_MAX_SLOTS when unmeshed or the entries divide it evenly;
+    smaller for awkward counts — 24 entries cap flushes at 24), or 0 for an
+    unshardable mesh."""
+    if not mesh_shardable(mesh):
+        return 0
+    return _mega_rung(MEGA_MAX_SLOTS, _mesh_size(mesh))
 
 
 def _mega_key_tail(slots: int, zone_key: int, ct_key: int, mesh) -> tuple:
-    """The megabatch bucket-key suffix: slot rung + zone/ct vocab positions.
-    The single source of this format — ``mega_signature`` and
-    ``_dispatch_prepared`` both append exactly this."""
-    _no_mesh(mesh)
-    return (
-        ("mega_slots", _mega_rung(slots)),
+    """The megabatch bucket-key suffix: slot rung + zone/ct vocab positions
+    (+ the mesh fingerprint when sharded).  The single source of this
+    format — ``mega_signature`` and ``_dispatch_prepared`` both append
+    exactly this."""
+    tail = (
+        ("mega_slots", _mega_rung(slots, _mesh_size(mesh))),
         ("zk", zone_key),
         ("ck", ct_key),
     )
+    if mesh is not None:
+        from ..parallel.mesh import mesh_signature
+
+        tail += (("mesh", mesh_signature(mesh)),)
+    return tail
 
 
 #: the megabatch bucket-key components that are PADDED axis rungs — two
 #: buckets differing only here can share one dispatch when one dominates
 UNIFIABLE_DIMS = ("G", "C", "NR", "NE_pad", "S", "P")
-#: the non-dims tail components ``_mega_key_tail`` appends (plus the
-#: reference's mesh fingerprint, which a port key never carries)
+#: the non-dims tail components ``_mega_key_tail`` appends (plus the mesh
+#: fingerprint it conditionally adds)
 _MEGA_TAIL_NAMES = tuple(
     k for k, _ in _mega_key_tail(1, 0, 0, None)) + ("mesh",)
 
@@ -179,14 +209,68 @@ def mega_key_at_slots(key: tuple, slots: int, mesh) -> tuple:
     return dims_part + _mega_key_tail(slots, d["zk"], d["ck"], mesh)
 
 
-def _rung(n: int, quantum: int, linear_max: int, ratio: float = 1.5) -> int:
+def multihost_fence_enabled() -> bool:
+    """Per-host megabatch fences (read back only the slot blocks this rank
+    owns) — default on; ``KT_MULTIHOST=0`` forces the whole-batch read."""
+    import os
+
+    return os.environ.get("KT_MULTIHOST", "1") != "0"
+
+
+def read_slot_rows(arrays, *, local_only: bool = False):
+    """Read back the leading (request-slot) axis of stacked megabatch
+    arrays — the one accessor of the per-host fence.  Each array is a
+    tensor or a :class:`~karpenter_tpu_torch.parallel.mesh.ShardedArray`.
+
+    ``local_only`` reads ONLY this rank's shards of a sharded array (each
+    on the stream that produced it); otherwise one whole-array read per
+    array, gathering foreign shards from their ranks.  Returns ``(rows,
+    bytes_read, bytes_total)`` where ``rows[k][s]`` is slot ``s`` of array
+    ``k`` — only locally owned slots are present under ``local_only`` in a
+    multi-process job."""
+    from ..parallel.mesh import ShardedArray
+
+    rows: List[dict] = []
+    bytes_read = 0
+    bytes_total = 0
+    for arr in arrays:
+        per: Dict[int, np.ndarray] = {}
+        if isinstance(arr, ShardedArray):
+            bytes_total += arr.nbytes
+            if local_only:
+                for shard in arr.addressable_shards:
+                    with _on_stream(shard.stream):
+                        data = shard.data.cpu().numpy()
+                    start = shard.index[0].start or 0
+                    for j in range(data.shape[0]):
+                        per[start + j] = data[j]
+                    bytes_read += int(data.nbytes)
+                rows.append(per)
+                continue
+            from ..parallel.distributed import replicate_for_host
+
+            a = replicate_for_host(None, arr)
+        else:
+            bytes_total += int(arr.numel() * arr.element_size())
+            a = arr.cpu().numpy()
+        for s in range(a.shape[0]):
+            per[s] = a[s]
+        bytes_read += int(a.nbytes)
+        rows.append(per)
+    return rows, bytes_read, bytes_total
+
+
+def _rung(n: int, quantum: int, linear_max: int, ratio: float = 1.5,
+          axis_div: int = 1) -> int:
     """Bucket ``n`` up to a small, stable rung ladder: linear multiples of
     ``quantum`` up to ``linear_max``, then a geometric x``ratio`` ladder
-    (each rung rounded to the quantum)."""
-    q = quantum
+    (each rung rounded to the quantum).  ``axis_div`` keeps the rung
+    divisible by a mesh axis."""
+    q = max(quantum, axis_div)
+    q = ((q + axis_div - 1) // axis_div) * axis_div
 
     def up(m: int) -> int:
-        return max(((m + q - 1) // q) * q, 1)
+        return max(((m + q - 1) // q) * q, axis_div)
 
     if n <= linear_max:
         return up(n)
@@ -226,17 +310,18 @@ def _nr_estimate(st: SolveTensors, NE: int, node_budget: int) -> int:
 
 
 def solve_dims(st: SolveTensors, *, NE: int, node_budget: int,
-               track: bool = True, full_nr: bool = False) -> dict:
+               a: int = 1, b: int = 1, track: bool = True,
+               full_nr: bool = False) -> dict:
     """The padded tensor dimensions of a solve of ``st`` against ``NE``
     existing nodes with ``node_budget`` max node slots — the same rung
     bucketing as the reference, so both packages pad a batch identically.
-    ``full_nr`` forces the worst-case NR axis (the slot-exhaustion retry).
-    ``a``/``b`` are the reference's mesh axis divisors, always 1 here (no
-    mesh): kept so a signature is the reference's tuple."""
-    G_pad = _rung(st.G, 16, 128)
-    C_pad = _rung(max(1, st.C), 64, 512)
+    ``a``/``b`` are the mesh's (pods, types) axis divisors (1 unmeshed);
+    ``full_nr`` forces the worst-case NR axis (the slot-exhaustion
+    retry)."""
+    G_pad = _rung(st.G, 16, 128, axis_div=a)
+    C_pad = _rung(max(1, st.C), 64, 512, axis_div=b)
     nr_slots = node_budget if full_nr else _nr_estimate(st, NE, node_budget)
-    NR = _rung(max(1, nr_slots), 512, 2048)
+    NR = _rung(max(1, nr_slots), 512, 2048, axis_div=a)
     NE_pad = _rung(max(1, NE), 16, 64)
     S_pad = _rung(st.S, 8, 32) if st.S else 0
     P_pad = _rung(max(1, len(st.prov_names)), 4, 8)
@@ -244,7 +329,7 @@ def solve_dims(st: SolveTensors, *, NE: int, node_budget: int,
     return dict(
         G=G_pad, C=C_pad, NR=NR, NE_pad=NE_pad, S=S_pad, P=P_pad,
         D=st.D, R=st.R, Z=max(1, st.n_zones), K=K, W=W, track=bool(track),
-        a=1, b=1,
+        a=a, b=b,
     )
 
 
@@ -1017,6 +1102,8 @@ class TpuSolver:
         # shape families whose optimistic NR estimate exhausted once: their
         # signature resolves to the full-budget dims from then on
         self._nr_exhausted: set = set()              # guarded-by: _lock
+        # per-(device, block) streams of sharded megabatch dispatches
+        self._streams: Dict[tuple, object] = {}      # guarded-by: _lock
 
     # ---- signatures and readiness ----------------------------------------
     def signature(
@@ -1029,18 +1116,19 @@ class TpuSolver:
         mesh=None,
     ) -> tuple:
         """The padded-dims key of this solve (the reference's tuple on the
-        same inputs); the full-budget dims once the family exhausted."""
-        _no_mesh(mesh)
+        same inputs, ``mesh`` setting its axis divisors); the full-budget
+        dims once the family exhausted."""
         NE = len(existing_nodes)
+        a, b = _mesh_divs(mesh)
         node_budget = _node_budget(st, NE, max_nodes)
-        dims = solve_dims(st, NE=NE, node_budget=node_budget,
+        dims = solve_dims(st, NE=NE, node_budget=node_budget, a=a, b=b,
                           track=track_assignments)
         key = _dims_key(dims)
         with self._lock:
             exhausted = key in self._nr_exhausted
         if exhausted:
             key = _dims_key(solve_dims(
-                st, NE=NE, node_budget=node_budget,
+                st, NE=NE, node_budget=node_budget, a=a, b=b,
                 track=track_assignments, full_nr=True))
         return key
 
@@ -1057,10 +1145,13 @@ class TpuSolver:
         """Bucket key of the megabatch that would serve a ``slots``-request
         batch of this shape: the single-solve key plus the padded slot rung
         and the vocab positions of the zone/ct keys (two catalogs interning
-        the keys differently are different buckets)."""
+        the keys differently are different buckets).  ``mesh`` is the
+        sharded megabatch: per-slot dims stay the single-device ones (the
+        slot axis, not the tensor axes, is what shards), the rung floors
+        at the mesh's entry count and the mesh fingerprint joins the key."""
         base = self.signature(
             st, existing_nodes=existing_nodes, max_nodes=max_nodes,
-            track_assignments=track_assignments, mesh=mesh,
+            track_assignments=track_assignments,
         )
         return base + _mega_key_tail(
             slots, st.vocab.key_id[L.ZONE], st.vocab.key_id[L.CAPACITY_TYPE],
@@ -1138,7 +1229,7 @@ class TpuSolver:
             )
         kwargs = dict(
             st=st, existing_nodes=existing_nodes, max_nodes=max_nodes,
-            track_assignments=track_assignments, on_done=on_done,
+            track_assignments=track_assignments, mesh=mesh, on_done=on_done,
             slots=slots,
         )
         return self._admit_warm(sig, kwargs)
@@ -1182,7 +1273,9 @@ class TpuSolver:
                 elif slots:
                     # megabatch warm: one request padded up to the slot
                     # rung runs exactly the batch a full flush will
-                    outs = self.solve_many([dict(kwargs)], min_slots=slots)
+                    req = dict(kwargs)
+                    mesh = req.pop("mesh")
+                    outs = self.solve_many([req], min_slots=slots, mesh=mesh)
                     if isinstance(outs[0], Exception):
                         raise outs[0]
                 else:
@@ -1236,6 +1329,8 @@ class TpuSolver:
         track_assignments: bool,
         full_nr: bool,
         dims: Optional[dict] = None,
+        a: int = 1,
+        b: int = 1,
     ):
         """Pure-host (numpy) build of one solve's padded tensors: returns
         ``(np_consts, feas, np_init, dims)`` — the same padding/bucketing
@@ -1245,7 +1340,7 @@ class TpuSolver:
         NE = len(existing_nodes)
 
         if dims is None:
-            dims = solve_dims(st, NE=NE, node_budget=node_budget,
+            dims = solve_dims(st, NE=NE, node_budget=node_budget, a=a, b=b,
                               track=track_assignments, full_nr=full_nr)
         pad_g = dims["G"] - G
         pad_c = dims["C"] - C
@@ -1372,50 +1467,88 @@ class TpuSolver:
         return np_consts, feas, np_init, dims
 
     # ---- host -> device ------------------------------------------------
-    def _stack(self, vals: List[np.ndarray], dtype=None) -> torch.Tensor:
-        """Stack per-slot host arrays on the device; slots sharing one
+    @staticmethod
+    def _stack(vals: List[np.ndarray], device, dtype=None) -> torch.Tensor:
+        """Stack per-slot host arrays on ``device``; slots sharing one
         array object (a shared base build) transfer it once and expand."""
         first = vals[0]
         if all(v is first for v in vals[1:]):
             a = np.asarray(first)
             if not a.flags.c_contiguous:
                 a = np.ascontiguousarray(a)
-            t = torch.from_numpy(a).to(self.device)
+            t = torch.from_numpy(a).to(device)
             if dtype is not None:
                 t = t.to(dtype)
             return t.unsqueeze(0).expand(len(vals), *t.shape)
-        t = torch.from_numpy(np.stack(vals)).to(self.device)
+        t = torch.from_numpy(np.stack(vals)).to(device)
         return t.to(dtype) if dtype is not None else t
 
-    def _feasibility(self, feas: dict, np_consts: dict, zone_key: int,
-                     ct_key: int):
-        dev = self.device
-
+    @staticmethod
+    def _feasibility(feas: dict, np_consts: dict, zone_key: int,
+                     ct_key: int, device, rows=slice(None),
+                     cols=slice(None)):
+        """Feasibility of one solve on ``device``; ``rows`` / ``cols``
+        select a (pods, types) block of ``F`` (and the rows of
+        ``dom_ok``)."""
         def t(a, dtype=None):
-            out = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            out = torch.from_numpy(np.ascontiguousarray(a)).to(device)
             return out.to(dtype) if dtype is not None else out
 
         return compute_feasibility(
-            t(feas["pm"], torch.int64), t(np_consts["requests"]),
-            t(feas["gp_ok"]), t(feas["cand_vw"], torch.int64),
-            t(feas["cand_vb"], torch.int64), t(np_consts["cand_alloc"]),
-            t(np_consts["cand_prov"], torch.int64), t(feas["key_check"]),
+            t(feas["pm"][rows], torch.int64), t(np_consts["requests"][rows]),
+            t(feas["gp_ok"][rows]), t(feas["cand_vw"][cols], torch.int64),
+            t(feas["cand_vb"][cols], torch.int64),
+            t(np_consts["cand_alloc"][cols]),
+            t(np_consts["cand_prov"][cols], torch.int64),
+            t(feas["key_check"]),
             t(feas["dom_vw"], torch.int64), t(feas["dom_vb"], torch.int64),
             zone_key, ct_key,
         )
 
+    def _sharded_feasibility(self, feas: dict, np_consts: dict,
+                             zone_key: int, ct_key: int, mesh):
+        """``F`` and ``dom_ok`` computed block by block over the mesh's
+        (pods, types) layout (``feasibility_shardings``), each block on its
+        own entry's device, then assembled on the solver's device.  In a
+        multi-process job a rank computes only its own blocks and gathers
+        the rest from their ranks (``torch.distributed``)."""
+        from ..parallel.distributed import gather_blocks
+        from ..parallel.mesh import _rank, feasibility_shardings, multihost
+
+        _ins, (f_sh, d_sh) = feasibility_shardings(mesh)
+        G = feas["pm"].shape[0]
+        C = feas["cand_vw"].shape[0]
+        D = feas["dom_vw"].shape[0]
+        me = _rank()
+        f_blocks, d_blocks = [], []
+        for (_p, dev, proc, (rs, cs)), (_q, _d, _pp, (rd, _all)) in zip(
+                f_sh.shard_indices((G, C)), d_sh.shard_indices((G, D))):
+            if proc != me:
+                continue
+            F_b, dom_b = self._feasibility(feas, np_consts, zone_key, ct_key,
+                                           dev, rows=rs, cols=cs)
+            f_blocks.append(((rs, cs), F_b))
+            d_blocks.append(((rd,), dom_b))
+        F = gather_blocks(f_blocks, (G, C), torch.bool, self.device,
+                          complete=not multihost(mesh))
+        dom_ok = gather_blocks(d_blocks, (G, D), torch.bool, self.device,
+                               complete=not multihost(mesh))
+        return F, dom_ok
+
     def _enqueue_entries(self, entries: Sequence[dict], zone_key: int,
-                         ct_key: int):
+                         ct_key: int, device=None):
         """The enqueue half of one dispatch over prepared entries (all at
-        one dims bucket): uploads, feasibility per distinct input set, then
-        the batched group loop.  Returns the device ``(carry, ys)`` with a
-        leading slot axis, and the dispatch's CUDA event pair (None on the
-        host) bracketing its first upload and last launch; nothing here
-        reads the device back."""
+        one dims bucket) on ``device`` (the solver's by default): uploads,
+        feasibility per distinct input set, then the batched group loop.
+        Returns the device ``(carry, ys)`` with a leading slot axis, and
+        the dispatch's CUDA event pair (None on the host) bracketing its
+        first upload and last launch; nothing here reads the device
+        back."""
         if self._faults:
             self._faults.fire("dispatch")  # dispatch_exc raises here
+        dev = self.device if device is None else torch.device(device)
         marks = None
-        if self.device.type == "cuda":
+        if dev.type == "cuda":
             marks = (torch.cuda.Event(enable_timing=True),
                      torch.cuda.Event(enable_timing=True))
             marks[0].record()
@@ -1438,21 +1571,21 @@ class TpuSolver:
                 id(e["np_consts"]["cand_alloc"]),
                 id(e["np_consts"]["cand_prov"]))
             if fk not in memo:
-                memo[fk] = self._feasibility(e["feas"], e["np_consts"],
-                                             zone_key, ct_key)
+                # a meshed solve brings its blockwise feasibility along
+                memo[fk] = e.get("feas_out") or self._feasibility(
+                    e["feas"], e["np_consts"], zone_key, ct_key, dev)
             Fs.append(memo[fk][0])
             DOs.append(memo[fk][1])
         consts = {}
         for k in keys:
             vals = [e["np_consts"][k] for e in entries]
             dtype = torch.int64 if k in _INDEX_CONSTS else None
-            consts[k] = self._stack(vals, dtype)
+            consts[k] = self._stack(vals, dev, dtype)
         if consts["g_sel_match"].shape[1] == 0:
             # no selectors: one inert all-False slot keeps the clamped
             # selector gathers in range (every slot id is -1 anyway)
             consts["g_sel_match"] = torch.zeros(
-                len(entries), 1, dims0["G"], dtype=torch.bool,
-                device=self.device)
+                len(entries), 1, dims0["G"], dtype=torch.bool, device=dev)
         consts["node_budget"] = consts["node_budget"].to(torch.int64)
         consts["F"] = torch.stack(Fs) if len(set(map(id, Fs))) > 1 else \
             Fs[0].unsqueeze(0).expand(len(entries), *Fs[0].shape)
@@ -1464,12 +1597,12 @@ class TpuSolver:
         init = []
         for i, dt in enumerate(init_dtypes):
             vals = [np.asarray(e["np_init"][i]) for e in entries]
-            init.append(self._stack(vals, dt).clone())
+            init.append(self._stack(vals, dev, dt).clone())
         if init[5].shape[2] == 0:
             B = len(entries)
-            init[5] = torch.zeros(B, NR, 1, dtype=torch.int32, device=self.device)
-            init[8] = torch.zeros(B, 1, Z, dtype=torch.int32, device=self.device)
-            init[9] = torch.zeros(B, 1, dtype=torch.int32, device=self.device)
+            init[5] = torch.zeros(B, NR, 1, dtype=torch.int32, device=dev)
+            init[8] = torch.zeros(B, 1, Z, dtype=torch.int32, device=dev)
+            init[9] = torch.zeros(B, 1, dtype=torch.int32, device=dev)
 
         flags = _branch_flags({
             k: np.stack([np.asarray(e["np_consts"][k]) for e in entries])
@@ -1480,20 +1613,30 @@ class TpuSolver:
             marks[1].record()
         return carry, ys, marks
 
-    def _read_back(self, carry, ys, marks=None):
-        """The read-back half: the one device-to-host read of a dispatch
-        (the ``fence`` fault site: ``device_hang`` raises here).  With the
-        dispatch's CUDA event pair it books the device time between them
-        (obs/occupancy.py ``device_busy_ms``), once per dispatch."""
+    def _fence(self) -> None:
+        """The ``fence`` fault site, fired before every device-to-host read
+        (``device_hang`` raises here; a ``slow_fence`` sleeps)."""
         if self._faults:
             effect = self._faults.fire("fence")
             if effect is not None and effect.kind == "slow_fence":
                 self._faults.sleep(effect)
-        carry_np = [x.cpu().numpy() for x in carry]
-        ys_np = ys.cpu().numpy() if ys is not None else None
+
+    @staticmethod
+    def _book(marks) -> None:
+        """Book the device time between a dispatch's CUDA event pair
+        (obs/occupancy.py ``device_busy_ms``), once per dispatch."""
         if marks is not None:
             marks[1].synchronize()
             record_device_ms(marks[0].elapsed_time(marks[1]))
+
+    def _read_back(self, carry, ys, marks=None):
+        """The read-back half: the one device-to-host read of a dispatch,
+        behind the ``fence`` fault site, booking the dispatch's device
+        time."""
+        self._fence()
+        carry_np = [x.cpu().numpy() for x in carry]
+        ys_np = ys.cpu().numpy() if ys is not None else None
+        self._book(marks)
         return carry_np, ys_np
 
     def _run_entries(self, entries: Sequence[dict], zone_key: int,
@@ -1516,19 +1659,25 @@ class TpuSolver:
     ):
         """Build ``(run, entry, NE)``: ``entry`` holds the solve's padded
         host arrays and ``run(entry)`` enqueues the one-slot group loop,
-        returning the device ``(carry, ys)`` unread."""
-        _no_mesh(mesh)
+        returning the device ``(carry, ys)`` unread.  ``mesh`` pads to the
+        mesh's axis divisors and computes feasibility block by block over
+        its (pods, types) layout, assembled on the solver's device where
+        the scan runs replicated (module docstring)."""
         NE = len(existing_nodes)
         node_budget = _node_budget(st, NE, max_nodes)
+        a, b = _mesh_divs(mesh)
         np_consts, feas, np_init, dims = self._host_arrays(
             st, existing_nodes, node_budget=node_budget,
-            track_assignments=track_assignments, full_nr=full_nr)
+            track_assignments=track_assignments, full_nr=full_nr, a=a, b=b)
         entry = dict(
             r=dict(st=st, existing_nodes=existing_nodes, max_nodes=max_nodes,
                    track_assignments=track_assignments),
             np_consts=np_consts, feas=feas, np_init=np_init, dims=dims, NE=NE)
         zone_key = st.vocab.key_id[L.ZONE]
         ct_key = st.vocab.key_id[L.CAPACITY_TYPE]
+        if mesh is not None:
+            entry["feas_out"] = self._sharded_feasibility(
+                feas, np_consts, zone_key, ct_key, mesh)
 
         def run(entry):
             return self._enqueue_entries([entry], zone_key, ct_key)
@@ -1544,12 +1693,12 @@ class TpuSolver:
         synchronous and the async paths can never run different batches.
         Returns ``(run, entry, NE, est_dims, full_dims, full_nr)``;
         ``run(entry)`` has NOT been called."""
-        _no_mesh(mesh)
+        a, b = _mesh_divs(mesh)
         NE0 = len(existing_nodes)
         node_budget = _node_budget(st, NE0, max_nodes)
-        est_dims = solve_dims(st, NE=NE0, node_budget=node_budget,
+        est_dims = solve_dims(st, NE=NE0, node_budget=node_budget, a=a, b=b,
                               track=track_assignments)
-        full_dims = solve_dims(st, NE=NE0, node_budget=node_budget,
+        full_dims = solve_dims(st, NE=NE0, node_budget=node_budget, a=a, b=b,
                                track=track_assignments, full_nr=True)
         if not full_nr:
             # families that exhausted the optimistic NR go straight to the
@@ -1558,7 +1707,7 @@ class TpuSolver:
                 full_nr = _dims_key(est_dims) in self._nr_exhausted
         run, entry, NE = self.prepare(
             st, existing_nodes=existing_nodes, max_nodes=max_nodes,
-            track_assignments=track_assignments, full_nr=full_nr,
+            track_assignments=track_assignments, mesh=mesh, full_nr=full_nr,
         )
         return run, entry, NE, est_dims, full_dims, full_nr
 
@@ -1619,7 +1768,7 @@ class TpuSolver:
             carry, est_dims, full_dims, full_nr, raise_on_exhaust,
             lambda: self.solve(
                 st, existing_nodes=existing_nodes, max_nodes=max_nodes,
-                track_assignments=track_assignments, full_nr=True,
+                track_assignments=track_assignments, mesh=mesh, full_nr=True,
                 trace=trace),
         )
         if retried is not None:
@@ -1659,7 +1808,7 @@ class TpuSolver:
             raise_on_exhaust=raise_on_exhaust,
             solve_kwargs=dict(
                 existing_nodes=existing_nodes, max_nodes=max_nodes,
-                track_assignments=track_assignments,
+                track_assignments=track_assignments, mesh=mesh,
             ),
             trace=trace,
         )
@@ -1671,6 +1820,7 @@ class TpuSolver:
         min_slots: Optional[int] = None,
         mesh=None,
         target_dims: Optional[dict] = None,
+        registry=None,
     ) -> "PendingMegaSolve":
         """Dispatch B independent, bucket-compatible solve requests as ONE
         batched group loop over padded request slots, WITHOUT reading back;
@@ -1685,7 +1835,15 @@ class TpuSolver:
         outputs are discarded — slots never interact, so padding cannot
         leak into a real request's result.  ``target_dims`` builds every
         request at caller-chosen padded dims (a unified mixed-bucket flush,
-        :func:`unify_mega_keys`)."""
+        :func:`unify_mega_keys`).
+
+        ``mesh`` serves the batch SHARDED: the padded slot axis splits into
+        one contiguous block per mesh entry (``slot_mesh``), each device's
+        run of entries enqueued as one block on its own stream; per-slot
+        programs are the single-device ones, so results equal unmeshed
+        serial solves.  In a multi-process job each rank enqueues and reads
+        back only its own blocks (the per-host fence).  ``registry`` observes the fence's
+        byte and ownership counters."""
         if not requests:
             raise MegaBucketMismatch("empty megabatch")
         if len(requests) > MEGA_MAX_SLOTS:
@@ -1729,14 +1887,20 @@ class TpuSolver:
             ))
         return self._dispatch_prepared(entries, n_slots=n_slots, track=track,
                                        zone_key=zone_key, ct_key=ct_key,
-                                       t0=t0, mesh=mesh)
+                                       t0=t0, mesh=mesh, registry=registry)
 
-    def solve_many_prepared(self, entries: Sequence[dict]) -> List[TpuSolveOutput]:
+    def solve_many_prepared(self, entries: Sequence[dict], *,
+                            min_slots: Optional[int] = None, mesh=None,
+                            registry=None) -> List[object]:
         """Solve PRE-BUILT entries (each with ``r``, ``np_consts``, ``feas``,
         ``np_init``, ``dims``, ``NE``; all at one dims bucket, full NR) as
-        ONE batched dispatch, unpadded; one output per entry, in order.
-        The hierarchical solve and the consolidation sweep derive every
-        entry from one shared base build."""
+        ONE batched dispatch; one output per entry, in order.  The
+        hierarchical solve and the consolidation sweep derive every entry
+        from one shared base build.  Unmeshed, the batch runs unpadded and
+        every output is a :class:`TpuSolveOutput`.  ``mesh`` runs it as the
+        sharded megabatch of :meth:`solve_many_async` (padded to the rung
+        of ``min_slots``), whose outputs may also be a slot's exception
+        (:class:`SlotNotOwned` for another rank's slot)."""
         if not entries:
             raise MegaBucketMismatch("empty megabatch")
         if len(entries) > MEGA_MAX_SLOTS:
@@ -1745,9 +1909,15 @@ class TpuSolver:
                 f"{MEGA_MAX_SLOTS}")
         t0 = time.perf_counter()
         st0 = entries[0]["r"]["st"]
-        carry_np, ys_np = self._run_entries(
-            entries, st0.vocab.key_id[L.ZONE],
-            st0.vocab.key_id[L.CAPACITY_TYPE])
+        zone_key = st0.vocab.key_id[L.ZONE]
+        ct_key = st0.vocab.key_id[L.CAPACITY_TYPE]
+        if mesh is not None:
+            return self._dispatch_prepared(
+                entries, n_slots=max(len(entries), min_slots or 1),
+                track=entries[0]["r"]["track_assignments"],
+                zone_key=zone_key, ct_key=ct_key, t0=t0, mesh=mesh,
+                registry=registry).results()
+        carry_np, ys_np = self._run_entries(entries, zone_key, ct_key)
         elapsed_ms = (time.perf_counter() - t0) * 1000.0
         outs = []
         for i, e in enumerate(entries):
@@ -1760,12 +1930,11 @@ class TpuSolver:
 
     def _dispatch_prepared(
         self, entries, *, n_slots: int, track: bool, zone_key: int,
-        ct_key: int, t0: float, mesh=None,
+        ct_key: int, t0: float, mesh=None, registry=None,
     ) -> "PendingMegaSolve":
         """Pad + enqueue prepared entries; validates the one-bucket
         invariant (a typed :class:`MegaBucketMismatch` the collector
         degrades to serial dispatches on)."""
-        _no_mesh(mesh)
         reqs = [e["r"] for e in entries]
         dims0 = entries[0]["dims"]
         if not all(e["dims"] == dims0 for e in entries) or any(
@@ -1775,24 +1944,109 @@ class TpuSolver:
             for r in reqs
         ):
             raise MegaBucketMismatch("requests span megabatch buckets")
+        n_dev = _mesh_size(mesh)
+        if not mesh_shardable(mesh):
+            # one block per entry would pad past the rung ladder; the
+            # scheduler gates these meshes onto the serial path
+            # (mesh_serial), so only a direct caller lands here
+            raise MegaBucketMismatch(
+                f"{n_dev}-device mesh exceeds MEGA_MAX_SLOTS="
+                f"{MEGA_MAX_SLOTS}; sharded megabatch unavailable")
         mega_key = _dims_key(dims0) + _mega_key_tail(
             n_slots, zone_key, ct_key, mesh)
         B = len(entries)
-        B_pad = _mega_rung(n_slots)
+        B_pad = _mega_rung(n_slots, n_dev)
+        if B > B_pad:
+            # an awkward entry count's largest in-ladder rung can sit below
+            # the caller's flush size (24 entries cap at 24 slots)
+            raise MegaBucketMismatch(
+                f"{B} entries exceed the {B_pad}-slot sharded rung of a "
+                f"{n_dev}-device mesh")
         # padding slots are request 0's entry itself: they share its
         # arrays, so its uploads and feasibility are reused, never rebuilt
         padded = list(entries) + [entries[0]] * (B_pad - B)
         # per-request trace stamps: the shared device phase is recorded on
         # every request's trace as a pre-closed "megabatch" span
-        t_starts = [e["r"]["trace"].now() for e in entries]
-        carry_b, ys_b, marks = self._enqueue_entries(padded, zone_key,
-                                                     ct_key)
+        t_starts = [(e["r"].get("trace") or NULL_TRACE).now()
+                    for e in entries]
+        if mesh is None:
+            carry_b, ys_b, marks = self._enqueue_entries(padded, zone_key,
+                                                         ct_key)
+            marks = [marks] if marks is not None else []
+        else:
+            carry_b, ys_b, marks = self._enqueue_sharded(
+                padded, zone_key, ct_key, mesh)
         return PendingMegaSolve(
             solver=self, entries=entries, carry_b=carry_b, ys_b=ys_b,
             marks=marks,
             t0=t0, t_starts=t_starts, track=track, B=B, B_pad=B_pad,
-            mega_key=mega_key,
+            mega_key=mega_key, mesh=mesh, registry=registry,
         )
+
+    def _block_stream(self, device, k: int, n_local: int):
+        """The stream slot block ``k`` of a sharded dispatch is enqueued
+        and read back on: the current stream when this rank holds one
+        block, else a stream of its own per (device, block)."""
+        if device.type != "cuda":
+            return None
+        current = torch.cuda.current_stream(device)
+        if n_local == 1:
+            return current
+        with self._lock:
+            stream = self._streams.get((str(device), k))
+            if stream is None:
+                stream = torch.cuda.Stream(device=device)
+                self._streams[(str(device), k)] = stream
+        stream.wait_stream(current)
+        return stream
+
+    def _enqueue_sharded(self, padded: Sequence[dict], zone_key: int,
+                         ct_key: int, mesh):
+        """Enqueue this rank's contiguous slot blocks of a padded megabatch
+        (``slot_sharding``: one block per mesh entry), each on its entry's
+        device and stream.  Consecutive entries on one device (virtual
+        shards of one card) run as ONE block: a group loop's launches do
+        not depend on its slot count, so a block per entry would multiply
+        the host's launches by the shard count for no device work.  A mesh
+        over k cards still issues k group loops from this thread.  Returns
+        the carry and ys as :class:`ShardedArray` over the slot axis (None
+        for a rank holding no entry) and the blocks' CUDA event pairs."""
+        from ..parallel.mesh import Shard, ShardedArray, _rank, slot_sharding
+
+        sh = slot_sharding(mesh)
+        me = _rank()
+        runs: List[list] = []  # [device, start, stop] per run of entries
+        for _pos, dev, proc, idx in sh.shard_indices((len(padded),)):
+            if proc != me:
+                continue
+            if runs and runs[-1][0] == dev and runs[-1][2] == idx[0].start:
+                runs[-1][2] = idx[0].stop
+            else:
+                runs.append([dev, idx[0].start, idx[0].stop])
+        blocks, marks = [], []
+        for k, (dev, start, stop) in enumerate(runs):
+            stream = self._block_stream(dev, k, len(runs))
+            with _on_stream(stream):
+                carry, ys, mk = self._enqueue_entries(
+                    padded[start:stop], zone_key, ct_key, device=dev)
+            blocks.append(((slice(start, stop),), dev, stream, carry, ys))
+            if mk is not None:
+                marks.append(mk)
+        if not blocks:
+            return None, None, marks
+
+        def sharded(pick):
+            t0 = pick(blocks[0])
+            shards = [Shard(b[0], b[1], pick(b), b[2]) for b in blocks]
+            return ShardedArray((len(padded),) + tuple(t0.shape[1:]),
+                                t0.dtype, sh, shards)
+
+        n_carry = len(blocks[0][3])
+        carry_b = tuple(sharded(lambda b, k=k: b[3][k])
+                        for k in range(n_carry))
+        ys_b = (sharded(lambda b: b[4]) if blocks[0][4] is not None
+                else None)
+        return carry_b, ys_b, marks
 
     def solve_many(
         self,
@@ -2045,23 +2299,39 @@ class PendingMegaSolve:
     ``results()`` is the ONE batch-wide device-to-host read, then per-slot
     extraction; one output per real request, in order (a
     :class:`TpuSolveOutput`, or the exception that slot alone hit).
-    Idempotent and safe to call from any thread: the first caller reads,
-    later ones get the cached outputs; per-slot slot-exhaustion semantics
-    match ``solve_many``."""
+
+    On a meshed dispatch in a multi-process job the read is a per-host
+    fence: only this rank's slot blocks are read back
+    (:func:`read_slot_rows`), and slots another rank owns resolve to a
+    typed :class:`~karpenter_tpu_torch.parallel.forward.SlotNotOwned`
+    naming the owner; ``owned_slots``, ``fence_bytes_read`` and
+    ``fence_bytes_total`` record what was read.  Idempotent and safe to
+    call from any thread: the first caller reads, later ones get the
+    cached outputs; per-slot slot-exhaustion semantics match
+    ``solve_many`` (an exhausted slot re-solves on the meshed program)."""
 
     def __init__(self, solver, entries, carry_b, ys_b, t0, t_starts, track,
-                 B, B_pad, mega_key, marks=None) -> None:
+                 B, B_pad, mega_key, marks=(), mesh=None,
+                 registry=None) -> None:
         self.solver = solver
         self.entries = entries
         self.carry_b = carry_b
         self.ys_b = ys_b
-        self.marks = marks
+        self.marks = list(marks)
         self.t0 = t0
         self.t_starts = t_starts
         self.track = track
         self.B = B
         self.B_pad = B_pad
         self.mega_key = mega_key
+        self.mesh = mesh
+        self.registry = registry
+        #: per-host fence accounting, set by results(): bytes this rank
+        #: read vs what a whole-batch read would have, and the
+        #: [start, stop) slot range it owns
+        self.fence_bytes_read = 0
+        self.fence_bytes_total = 0
+        self.owned_slots: Tuple[int, int] = (0, B_pad)
         self.stream = _dispatch_stream(solver.device)
         self._lock = threading.Lock()
         self._outputs: Optional[List[object]] = None
@@ -2073,33 +2343,72 @@ class PendingMegaSolve:
             return self._outputs
 
     def _resolve(self) -> List[object]:
+        from ..parallel.forward import SlotNotOwned
+
         s = self.solver
-        with _on_stream(self.stream):
-            carry_rows, ys_rows = s._read_back(
-                self.carry_b, self.ys_b if self.track else None, self.marks)
+        # per-host fence: a meshed dispatch reads only this rank's slot
+        # blocks (a single-process mesh owns them all); KT_MULTIHOST=0
+        # forces the whole-batch read
+        per_host = self.mesh is not None and multihost_fence_enabled()
+        owners: Optional[tuple] = None
+        if per_host:
+            from ..parallel.mesh import local_slot_range, multihost, slot_hosts
+
+            if multihost(self.mesh):
+                owners = slot_hosts(self.mesh, self.B_pad)
+                self.owned_slots = local_slot_range(self.mesh, self.B_pad)
+        carry_rows: List[dict] = [{} for _ in range(12)]
+        ys_rows = None
+        if self.carry_b is not None:
+            arrays = list(self.carry_b)
+            if self.track:
+                arrays.append(self.ys_b)
+            s._fence()
+            with _on_stream(self.stream):
+                rows, self.fence_bytes_read, self.fence_bytes_total = \
+                    read_slot_rows(arrays, local_only=per_host)
+            for marks in self.marks:
+                s._book(marks)
+            carry_rows = rows[:len(self.carry_b)]
+            ys_rows = rows[-1] if self.track else None
         elapsed_ms = (time.perf_counter() - self.t0) * 1000.0
         s._mark_ready(self.mega_key)
+        if per_host and self.registry is not None:
+            from ..metrics import MULTIHOST_FENCE_BYTES
+
+            c = self.registry.counter(MULTIHOST_FENCE_BYTES)
+            c.inc({"scope": "read"}, value=float(self.fence_bytes_read))
+            c.inc({"scope": "whole"}, value=float(self.fence_bytes_total))
+        lo, hi = self.owned_slots
         outputs: List[object] = []
         for i, e in enumerate(self.entries):
             r = e["r"]
-            trace = r["trace"] or NULL_TRACE
+            trace = r.get("trace") or NULL_TRACE
             trace.record(
                 "megabatch", self.t_starts[i], trace.now(),
                 slot=i, slots=self.B_pad, occupied=self.B,
             )
+            if not (lo <= i < hi):
+                # another rank's slot: this process read none of it — a
+                # typed per-slot outcome the serving layer's forwarding
+                # shim (parallel/forward.py) routes to the owner
+                outputs.append(SlotNotOwned(i, owners[i] if owners else -1))
+                continue
             carry_i = tuple(x[i] for x in carry_rows)
             ys_i = ys_rows[i] if ys_rows is not None else None
             try:
-                retried = s._maybe_retry_exhausted(
-                    carry_i, e["est_dims"], e["full_dims"], e["full_nr"],
-                    r["raise_on_exhaust"],
-                    lambda r=r: s.solve(
-                        r["st"], existing_nodes=r["existing_nodes"],
-                        max_nodes=r["max_nodes"],
-                        track_assignments=r["track_assignments"],
-                        full_nr=True,
-                    ),
-                )
+                retried = None
+                if "est_dims" in e:
+                    retried = s._maybe_retry_exhausted(
+                        carry_i, e["est_dims"], e["full_dims"], e["full_nr"],
+                        r.get("raise_on_exhaust", False),
+                        lambda r=r: s.solve(
+                            r["st"], existing_nodes=r["existing_nodes"],
+                            max_nodes=r["max_nodes"],
+                            track_assignments=r["track_assignments"],
+                            mesh=self.mesh, full_nr=True,
+                        ),
+                    )
             # per-slot boxed outcome: the exhausted slot's exception is
             # returned in its slot so batchmates still get their results
             except Exception as err:
@@ -2113,6 +2422,15 @@ class PendingMegaSolve:
                     r["st"], carry_i, ys_i, r["existing_nodes"], e["NE"],
                     elapsed_ms,
                 ))
+        if owners is not None and self.registry is not None:
+            from ..metrics import MULTIHOST_SLOTS
+
+            n_foreign = sum(1 for o in outputs
+                            if isinstance(o, SlotNotOwned))
+            slots_c = self.registry.counter(MULTIHOST_SLOTS)
+            slots_c.inc({"ownership": "foreign"}, value=float(n_foreign))
+            slots_c.inc({"ownership": "owned"},
+                        value=float(len(outputs) - n_foreign))
         return outputs
 
 

@@ -431,3 +431,46 @@ def test_remote_operator_round_trip_against_a_cuda_sidecar(cuda, tmp_path):
     local = provision()
     assert remote[1] == 0 and remote[2] == 0.0
     assert remote[:2] == local[:2]
+
+
+def test_virtual_mesh_on_the_card_matches_unmeshed(cuda):
+    """Eight virtual shards on ``cuda:0`` (shape (4, 2)): the sharded single
+    solve and the slot-sharded megabatch give the unmeshed plans."""
+    from karpenter_tpu_torch.models.tensorize import tensorize
+    from karpenter_tpu_torch.parallel.mesh import make_mesh
+    from karpenter_tpu_torch.solver.tpu import TpuSolver
+    from scripts.dryrun_multihost_torch import (
+        plan_of,
+        scenario,
+        scenario_parts,
+    )
+
+    import chip_smoke as cs
+
+    mesh = make_mesh(devices=["cuda:0"] * 8)
+    assert mesh.shape == {"pods": 4, "types": 2}
+    solver = TpuSolver()
+    cs.names_from()
+    solo = solver.solve(scenario()).result
+    cs.names_from()
+    meshed = solver.solve(scenario(), mesh=mesh).result
+    assert plan_of(meshed) == plan_of(solo) and not meshed.infeasible
+    parts = [scenario_parts(48, tenant=f"c{i}") for i in range(8)]
+    sts = [tensorize(p, parts[0][1], parts[0][2]) for p, _pv, _c in parts]
+    cs.names_from()
+    outs = solver.solve_many([dict(st=st) for st in sts], mesh=mesh)
+    for st, out in zip(sts, outs):
+        cs.names_from()
+        assert cs.node_types(out.result) == cs.node_types(
+            solver.solve(st).result)
+
+
+def test_make_mesh_past_the_cards_raises(cuda):
+    """Asking for more cards than the machine has raises; the mesh never
+    falls back to the CPU."""
+    from karpenter_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    assert make_mesh(n).size == n
+    with pytest.raises(RuntimeError, match="never falls back"):
+        make_mesh(n + 1)

@@ -1,10 +1,11 @@
 """The port stands alone: every ``karpenter_tpu_torch`` module, and
-``chip_smoke.py``, imports with JAX, ml_dtypes and the reference package
-BLOCKED (a meta-path finder refusing ``jax``, ``jaxlib``, ``ml_dtypes`` and
-``karpenter_tpu`` / ``karpenter_tpu.*`` by exact name — the port's own
-``karpenter_tpu_torch`` is not caught by it).  Entry points resolve their
-default device to the CUDA card and raise without one; ``chip_smoke.py``
-refuses to run without a card or without the repository.
+``chip_smoke.py`` with the script it drives, imports with JAX, ml_dtypes
+and the reference package BLOCKED (a meta-path finder refusing ``jax``,
+``jaxlib``, ``ml_dtypes`` and ``karpenter_tpu`` / ``karpenter_tpu.*`` by
+exact name — the port's own ``karpenter_tpu_torch`` is not caught by
+it).  Entry points resolve their default device to the CUDA card and
+raise without one; ``chip_smoke.py`` refuses to run without a card or
+without the repository.
 """
 
 import json
@@ -26,6 +27,8 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(
     m.name for m in pkgutil.walk_packages(
         karpenter_tpu_torch.__path__, prefix="karpenter_tpu_torch."))
+#: the port's scripts outside the package (``chip_smoke.py`` drives them)
+SCRIPTS = ["chip_smoke", "scripts.dryrun_multihost_torch"]
 
 _PROBE = r"""
 import importlib, json, sys
@@ -59,7 +62,7 @@ def probe():
     env = {k: v for k, v in os.environ.items() if k != "KT_SANITIZE"}
     env["PYTHONPATH"] = str(ROOT)
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE, *MODULES, "chip_smoke"],
+        [sys.executable, "-c", _PROBE, *MODULES, *SCRIPTS],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -82,6 +85,7 @@ def test_every_module_is_probed():
                  "admission.queue", "admission.breaker",
                  "admission.brownout", "obs.protocol", "obs.occupancy",
                  "obs.slo", "obs.timeseries", "parallel", "parallel.forward",
+                 "parallel.mesh", "parallel.distributed",
                  "service", "service.solver_pb2", "service.codec",
                  "service.snapshot", "service.delta", "service.server",
                  "service.client", "obs.export", "obs.fleet", "obs.replay",
@@ -94,7 +98,7 @@ def test_every_module_is_probed():
     assert len(MODULES) >= 90
 
 
-@pytest.mark.parametrize("module", MODULES + ["chip_smoke"])
+@pytest.mark.parametrize("module", MODULES + SCRIPTS)
 def test_imports_without_jax_or_reference(probe, module):
     assert probe["modules"][module] == "ok"
 

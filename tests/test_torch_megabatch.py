@@ -448,8 +448,18 @@ def test_slot_cap_enforced(world):
         w.solver.solve_many(reqs)
     assert t_tpu.max_mega_slots(None) == ref_tpu.max_mega_slots(None) == 32
     assert t_tpu.mesh_shardable(None)
-    with pytest.raises(NotImplementedError):
-        t_tpu.max_mega_slots(object())
+    # a mesh caps the flush at its sharded rung (the reference's on its
+    # 8 virtual devices); one with more entries than the ladder has none
+    from karpenter_tpu.parallel.mesh import make_mesh as ref_make_mesh
+    from karpenter_tpu_torch.parallel.mesh import make_mesh
+
+    assert (t_tpu.max_mega_slots(make_mesh(devices=["cpu"] * 8))
+            == ref_tpu.max_mega_slots(ref_make_mesh(8)) == 32)
+    wide = make_mesh(devices=["cpu"] * 64)
+    assert not t_tpu.mesh_shardable(wide)
+    assert t_tpu.max_mega_slots(wide) == 0
+    with pytest.raises(t_tpu.MegaBucketMismatch):
+        w.solver.solve_many(reqs[:2], mesh=wide)
 
 
 def test_megabatch_construction_failure_degrades_serial(world, caplog):

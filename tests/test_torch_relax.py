@@ -148,6 +148,19 @@ def plan(result):
         for n in result.nodes)
 
 
+def names_from(start: int = 1000) -> None:
+    """Restart both packages' node-name counters at one value: coalescing
+    orders candidates by ``(size, name)``, so a compared pair of solves
+    must start from one counter state (a counter crossing a digit boundary
+    mid-solve reorders names as strings)."""
+    import karpenter_tpu.solver.types as ref_types
+    from karpenter_tpu_torch.solver import types as port_types
+
+    for mod in (ref_types, port_types):
+        with mod._node_lock:
+            mod._node_next = start
+
+
 def placements_tie(a, b):
     return (set(a.assignments) == set(b.assignments)
             and set(a.infeasible) == set(b.infeasible)
@@ -165,11 +178,13 @@ def scans(ref_pods, catalog_pair):
     reference's tensors carried in."""
     rcat, pcat = catalog_pair
     st_ref = ref_tensorize(ref_pods, ref_provs(), rcat)
+    names_from()
     res_ref = RefTpuSolver().solve(st_ref, track_assignments=True).result
     port_pods = to_port(ref_pods)
     st = tensors_from_reference(
         _array_fields(st_ref),
         like=tensorize(port_pods, port_provs(), pcat))
+    names_from()
     res = TpuSolver(device="cpu").solve(st, track_assignments=True).result
     assert plan(res) == plan(res_ref) or placements_tie(res, res_ref)
     return st_ref, res_ref, st, res, port_pods
@@ -349,6 +364,7 @@ def _ref_solve_warm(sched, reg, pods, catalog):
         time.sleep(0.05)
     assert sched._tpu.ready(ref_relax.relax_signature(st))
     before = _outcomes(reg, REF_RELAX_TOTAL)
+    names_from()
     res = sched.solve(pods, ref_provs(), catalog)
     after = _outcomes(reg, REF_RELAX_TOTAL)
     return res, {o: after[o] - before[o] for o in RELAX_OUTCOMES}
@@ -375,6 +391,7 @@ def test_default_solve_matches_warmed_reference(catalogs, warm_ref, case):
     ref_res, ref_counted = _ref_solve_warm(*warm_ref, ref_pods, rcat)
     reg = Registry()
     port = BatchScheduler(backend="tpu", device="cpu", registry=reg)
+    names_from()
     res = port.solve(to_port(ref_pods), port_provs(), pcat)
     assert _outcomes(reg, RELAX_TOTAL) == ref_counted
     assert sum(ref_counted.values()) == (0 if len(ref_pods) <= 256 else 1)

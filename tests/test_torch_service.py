@@ -154,12 +154,34 @@ def test_health_reports_the_torch_device():
 
 
 def test_multihost_peers_are_refused(monkeypatch):
-    from karpenter_tpu_torch.parallel.forward import MultiHostNotPorted
+    """``KT_MULTIHOST_PEERS`` arms the pipeline's forwarding shim with the
+    peers in rank order; ``KT_MULTIHOST_FORWARD=0`` refuses to forward: a
+    foreign slot surfaces its typed ``SlotNotOwned``, counted unrouted."""
+    from karpenter_tpu_torch.metrics import MULTIHOST_FORWARDS, Registry
+    from karpenter_tpu_torch.parallel.forward import SlotNotOwned
     from karpenter_tpu_torch.service.server import SolvePipeline
 
-    monkeypatch.setenv("KT_MULTIHOST_PEERS", "10.0.0.1:50151,10.0.0.2:50151")
-    with pytest.raises(MultiHostNotPorted, match="A10"):
-        SolvePipeline(scheduler(package(PORT), "oracle"))
+    peers = ["10.0.0.1:50151", "10.0.0.2:50151"]
+    monkeypatch.setenv("KT_MULTIHOST_PEERS", ",".join(peers))
+    pipe = SolvePipeline(scheduler(package(PORT), "oracle"))
+    try:
+        assert pipe._forwarder.enabled() and pipe._forwarder.peers == peers
+        assert pipe._forwarder.endpoint_of(1) == peers[1]
+    finally:
+        pipe.stop()
+    monkeypatch.setenv("KT_MULTIHOST_FORWARD", "0")
+    pipe = SolvePipeline(scheduler(package(PORT), "oracle"),
+                         registry=Registry())
+    try:
+        fwd = pipe._forwarder
+        assert not fwd.enabled()
+        with pytest.raises(SlotNotOwned) as info:
+            fwd.forward({}, SlotNotOwned(3, owner=1))
+        assert info.value.owner == 1
+        assert pipe.registry.counter(MULTIHOST_FORWARDS).get(
+            {"outcome": "unrouted"}) == 1
+    finally:
+        pipe.stop()
 
 
 def test_solve_ms_ends_at_the_read_back(monkeypatch):
