@@ -153,7 +153,26 @@ no result):
     exactly half the fence bytes, foreign slots typed ``SlotNotOwned``
     with their owner, owned plans equal to serial solves, and one foreign
     slot forwarded by ``ResultForwarder`` over gRPC to the owner's
-    ``SolverService`` (``KT_MULTIHOST_PEERS``) with the owner's plan.
+    ``SolverService`` (``KT_MULTIHOST_PEERS``) with the owner's plan;
+15. analysis — the port's analysis package: (a) ``python -m
+    karpenter_tpu_torch.analysis --format json`` and ``--lock-order`` as
+    subprocesses over the checkout: exit 0, 0 findings, the files and
+    suppressions counted, the KT012 lock order; (b) ``--model``: the
+    delta-epoch, lease-failover and automaton-simulation models explored
+    exhaustively, all ok, states / transitions / ms each; (c) the lock
+    sanitizer installed (``sanitize.install()``): 12(a)'s closed-loop
+    set-up at 8 and 32 clients (every tenant's plan equal to its solo
+    plan), then the slice's limited batch as one ``Solve`` RPC through
+    ``make_server`` over an ``auto`` scheduler from phase 4's node-name
+    counter while 8 gRPC clients keep sending: 0 ``SanitizerError``, 0
+    ``sanitizer_error`` flight dumps, every observed lock nesting in
+    ``LOCK_ORDER``'s order, phase 4's plan node for node, one
+    ``price_step_scores`` launch per price iteration, the clients' plans
+    equal to their solo plans; then ``uninstall()``; (d) under the port's
+    transition tap (``obs.protocol.recording()``), 13(c)'s wire delta
+    chain and a second session closed and re-established: every session's
+    event sequence a path of the model-checked automaton
+    (``conformance.check_events``).
 
 After every phase but 11(c) and 12(d) the run checks that no device hang
 was counted, no solve was served degraded or host-routed by admission,
@@ -164,8 +183,8 @@ hand-written kernels', and the relax and screen programs' runs) are
 zeroed just before each path is driven and read just after; no
 hand-written kernel is on the relax, consolidation, repack,
 serving-request or delta path, so their kernel counts read 0 there (the
-kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s and 14(a)'s
-launches to the slice's).
+kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s, 14(a)'s and
+15(c)'s launches to the slice's).
 The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
@@ -3682,6 +3701,374 @@ def phase_mesh(limit, slice_stats, slice_res, slice_wall_ms):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the analysis package (ktlint, the model checker, the lock
+# sanitizer, trace conformance)
+# ---------------------------------------------------------------------------
+
+#: phase 15's sizes: (a)/(b) the CLI over the checkout; (c) 12(a)'s
+#: closed-loop set-up at 8 and 32 clients, then the slice's batch over
+#: gRPC beside 8 clients; (d) 13(c)'s wire chain plus a session closed
+#: and re-established
+ANALYSIS = {"concurrency": (8, 32), "seconds": 4.0, "wire_clients": 8,
+            "second_pods": 2000, "second_steps": 4, "cli_timeout_s": 600.0}
+
+
+def analysis_cli(*args):
+    """``python -m karpenter_tpu_torch.analysis *args`` as a subprocess
+    from the checkout, with no summary cache: (exit code, stdout, wall
+    ms)."""
+    env = {k: v for k, v in os.environ.items() if k != "KT_SANITIZE"}
+    env["KT_LINT_CACHE"] = "0"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "karpenter_tpu_torch.analysis", *args],
+        cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+        text=True, timeout=ANALYSIS["cli_timeout_s"])
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    check(proc.returncode in (0, 1) and proc.stdout.strip(),
+          f"analysis {args} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return proc.returncode, proc.stdout, wall_ms
+
+
+def analysis_lint() -> dict:
+    """(a): the analyzer over the port and its lock order."""
+    rc, out, wall_ms = analysis_cli("--format", "json")
+    doc = json.loads(out)
+    check(rc == 0 and doc["findings"] == [],
+          f"ktlint over the port: rc {rc}, {len(doc['findings'])} findings "
+          f"{doc['findings'][:3]}")
+    rc2, out2, order_ms = analysis_cli("--lock-order", "--format", "json")
+    order = json.loads(out2)
+    check(rc2 == 0 and order["order"], "--lock-order failed")
+    by_rule: dict = {}
+    for f in doc["suppressed"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    return dict(files=doc["files"], findings=len(doc["findings"]),
+                suppressed=len(doc["suppressed"]),
+                suppressed_by_rule=by_rule, lint_wall_ms=wall_ms,
+                lock_order=order["order"], lock_edges=len(order["edges"]),
+                lock_order_wall_ms=order_ms)
+
+
+def analysis_model() -> dict:
+    """(b): the three protocol models, explored exhaustively."""
+    rc, out, wall_ms = analysis_cli("--model", "--format", "json")
+    doc = json.loads(out)
+    check(rc == 0 and doc["ok"], f"--model: rc {rc}, {doc}")
+    models = {m["model"]: dict(ok=m["ok"], states=m["states"],
+                               transitions=m["transitions"],
+                               exhaustive=m["exhaustive"],
+                               ms=m["elapsed_ms"])
+              for m in doc["models"]}
+    check(len(models) == 3 and all(m["ok"] and m["exhaustive"]
+                                   for m in models.values()),
+          f"a protocol model failed: {models}")
+    return dict(models=models, wall_ms=wall_ms)
+
+
+def analysis_sanitized(full, limit, slice_stats, slice_res):
+    """(c): ``sanitize.install()``, then 12(a)'s closed-loop set-up at 8
+    and 32 clients (an 8-slot ``SolvePipeline`` over ``backend="tpu"``)
+    and the slice's limited batch as one ``Solve`` RPC through
+    ``make_server`` (over ``backend="auto"``, admission on) while 8
+    clients keep sending to it; every ``SanitizerError`` constructed is
+    counted.  Returns (the 100k RPC's kernel launches, the phase's
+    fields)."""
+    import tempfile
+    import threading
+
+    import grpc
+
+    from karpenter_tpu_torch import kernels, metrics
+    from karpenter_tpu_torch.analysis import sanitize
+    from karpenter_tpu_torch.metrics import FLIGHT_DUMPS, HIER_SOLVES, Registry
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.obs import FlightRecorder, Tracer
+    from karpenter_tpu_torch.service import codec
+    from karpenter_tpu_torch.service import solver_pb2 as pb
+    from karpenter_tpu_torch.service.server import (
+        SERVICE as RPC_SERVICE,
+        SolvePipeline,
+        SolverService,
+        make_server,
+    )
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    raised: list = []
+    base_error = sanitize.SanitizerError
+
+    class CountedSanitizerError(base_error):
+        def __init__(self, *args):
+            raised.append(str(args[0]) if args else "")
+            super().__init__(*args)
+
+    sanitize.SanitizerError = CountedSanitizerError
+    sanitize.install()
+    small = generate_catalog(full=False)
+    provs = [provisioner()]
+    clients = [serving_pods(c) for c in range(SERVICE["clients"])]
+    reg = Registry()
+    tracer = Tracer(registry=reg, flight=FlightRecorder(
+        registry=reg, slow_trace_s=SERVICE["wire_trace_budget_s"]))
+    server = service = None
+    try:
+        sched = BatchScheduler(backend="tpu", registry=reg, tracer=tracer)
+        check(type(sched._tpu._lock).__name__ == "_OrderedLock",
+              "the sanitizer did not proxy the solver's lock")
+        st, _ = sched._tensorize_cache.tensorize(clients[0], provs, small)
+        rung, rungs = 2, [None]
+        while rung <= SERVICE["max_slots"]:
+            rungs.append(rung)
+            rung *= 2
+        t0 = time.perf_counter()
+        for s in rungs:
+            sched._tpu.warm_async(st, on_done=sched._warm_done, slots=s)
+        while not sched._tpu.warm_idle():
+            time.sleep(0.05)
+        warm_s = time.perf_counter() - t0
+        solo = SOLO_PLANS or [plan(sched.solve(p, provs, small, relax=False))
+                              for p in clients]
+
+        def kwargs_of(ci):
+            return dict(pods=clients[ci], provisioners=provs,
+                        instance_types=small)
+
+        loops = {}
+        for c in ANALYSIS["concurrency"]:
+            pipe = SolvePipeline(sched, registry=reg,
+                                 max_slots=SERVICE["max_slots"],
+                                 admission=False)
+            try:
+                names_from(100_000)
+                counts, last, lat, _s, wall = closed_loop(
+                    pipe, kwargs_of, c, ANALYSIS["seconds"])
+            finally:
+                pipe.stop()
+            equal = [plan(r) == solo[ci] for ci, r in enumerate(last)
+                     if r is not None]
+            check(all(equal) and len(equal) == c,
+                  f"a sanitized tenant at concurrency {c} planned "
+                  "differently from its solo solve")
+            loops[f"c{c}"] = dict(
+                solves=sum(counts), solves_per_s=sum(counts) / wall,
+                p50_ms=percentile(lat, 0.5) * 1e3,
+                p99_ms=percentile(lat, 0.99) * 1e3,
+                plans_equal_solo=sum(equal))
+
+        # the slice's batch over the wire beside 8 closed-loop clients,
+        # through the service's own pipeline (admission on) over an
+        # ``auto`` scheduler, as phase 4 solved it (its guard threads run
+        # every device call)
+        wire_sched = BatchScheduler(backend="auto", registry=reg,
+                                    tracer=tracer)
+        service = SolverService(wire_sched, registry=reg, tracer=tracer,
+                                max_slots=SERVICE["max_slots"])
+        address = f"unix:{tempfile.mkdtemp(prefix='kt-san-')}/solver.sock"
+        server, _port = make_server(service, host=address)
+        limits = [("grpc.max_receive_message_length", 256 * 1024 * 1024),
+                  ("grpc.max_send_message_length", 256 * 1024 * 1024)]
+        n_wire = ANALYSIS["wire_clients"]
+        wire_reqs = [codec.encode_request(clients[ci], provs, small)
+                     for ci in range(n_wire)]
+        stop = threading.Event()
+        served = [0] * n_wire
+        last_wire: list = [None] * n_wire
+        errors: list = []
+
+        def wire_client(ci):
+            channel = grpc.insecure_channel(address, options=limits)
+            try:
+                call = channel.unary_unary(
+                    f"/{RPC_SERVICE}/Solve",
+                    request_serializer=pb.SolveRequest.SerializeToString,
+                    response_deserializer=pb.SolveResponse.FromString)
+                while not stop.is_set():
+                    resp = call(wire_reqs[ci], timeout=900.0)
+                    last_wire[ci] = codec.decode_response(resp)
+                    served[ci] += 1
+            except Exception as err:  # reported after the join
+                errors.append(repr(err))
+            finally:
+                channel.close()
+
+        threads = [threading.Thread(target=wire_client, args=(ci,))
+                   for ci in range(n_wire)]
+        for t in threads:
+            t.start()
+        channel = grpc.insecure_channel(address, options=limits)
+        try:
+            solve = channel.unary_unary(
+                f"/{RPC_SERVICE}/Solve",
+                request_serializer=pb.SolveRequest.SerializeToString,
+                response_deserializer=pb.SolveResponse.FromString)
+            req = codec.encode_request(deployments(40, 2500),
+                                       [provisioner(limit)], full)
+            while min(served) == 0 and not errors:
+                time.sleep(0.05)  # every client is sending
+            hier0 = reg.counter(HIER_SOLVES).get({"path": "hierarchical"})
+            names_from(slice_stats["names_at"])
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            resp = solve(req, timeout=OPERATOR["rpc_timeout_s"])
+            rpc_ms = (time.perf_counter() - t0) * 1000.0
+            launches = {k.name: k.launches for k in kernels.ALL}
+            during = list(served)
+        finally:
+            channel.close()
+            stop.set()
+            for t in threads:
+                t.join()
+        res = codec.decode_response(resp)
+        edges = sorted(sanitize.observed_lock_edges())
+        stats = dict(wire_sched.hier_stats)
+    finally:
+        if server is not None:
+            server.stop(0)
+        if service is not None:
+            service.close()
+        sanitize.uninstall()
+        sanitize.SanitizerError = base_error
+    regs = {id(r): r for r in (reg, metrics.registry)}
+    dumps = sum(r.counter(FLIGHT_DUMPS).get({"reason": "sanitizer_error"})
+                for r in regs.values())
+    check(not errors, f"a wire client failed: {errors[:3]}")
+    check(not raised, f"{len(raised)} SanitizerError: {raised[:3]}")
+    check(dumps == 0, f"{dumps} sanitizer_error flight dumps")
+    order = {n: i for i, n in enumerate(sanitize.LOCK_ORDER)}
+    inverted = [(a, b) for a, b in edges if a in order and b in order
+                and a != b and order[a] > order[b]]
+    check(not inverted, f"observed lock edges invert LOCK_ORDER: "
+          f"{inverted}")
+    check(reg.counter(HIER_SOLVES).get({"path": "hierarchical"})
+          == hier0 + 1, "the sanitized 100k RPC did not route "
+          "hierarchically")
+    check(launches["price_step_score"] == stats["price_iters"] >= 1,
+          f"price_step_score launched {launches['price_step_score']} "
+          f"times for {stats['price_iters']} price iterations")
+    check(launches["packed_score"] == 0,
+          "the sanitized path launched the price-row entry")
+    equal = plan(res) == plan(slice_res)
+    tie = placements_tie(res, slice_res)
+    check(equal or tie, "the sanitized 100k plan differs from phase 4's")
+    wire_equal = [plan(r) == solo[ci] for ci, r in enumerate(last_wire)
+                  if r is not None]
+    check(len(wire_equal) == n_wire and all(wire_equal),
+          "a wire client's plan beside the 100k RPC differs from its solo "
+          "plan")
+    return launches, dict(
+        lock_order_entries=len(sanitize.LOCK_ORDER), warm_s=warm_s,
+        **loops, wire_clients=n_wire, wire_served_during=during,
+        wire_served=served, wire_plans_equal_solo=sum(wire_equal),
+        rpc_wall_ms=rpc_ms, solve_ms=resp.solve_ms,
+        price_iters=stats["price_iters"], launches=launches,
+        nodes=len(res.nodes), cost=res.new_node_cost,
+        infeasible=len(res.infeasible), plan_equal_slice=equal,
+        placements_tie_slice=tie, sanitizer_errors=len(raised),
+        sanitizer_dumps=dumps, observed_lock_edges=[list(e) for e in edges],
+        host_routed=host_routed(reg))
+
+
+def reestablished_session() -> dict:
+    """(d)'s second session: a chain on ``backend="tpu"`` closed, then
+    re-established under the same session id and driven again."""
+    import tempfile
+
+    from karpenter_tpu_torch.metrics import DELTA_RPC, Registry
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.service.client import DeltaSession
+    from karpenter_tpu_torch.service.server import SolverService, make_server
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    catalog = generate_catalog(full=False)
+    provs = [provisioner()]
+    reg = Registry()
+    service = SolverService(BatchScheduler(backend="tpu", registry=reg),
+                            registry=reg)
+    sock = f"unix:{tempfile.mkdtemp(prefix='kt-again-')}/solver.sock"
+    server, _ = make_server(service, host=sock)
+    out = []
+    try:
+        for rnd in range(2):
+            sess = DeltaSession(sock, session_id="reestablished",
+                                timeout=600.0)
+            pods = warmstart_pods(ANALYSIS["second_pods"], f"re{rnd}")
+            sess.solve(pods, provs, catalog)
+            live = [p.name for p in pods]
+            for k in range(ANALYSIS["second_steps"]):
+                rm, live = live[:8], live[8:]
+                add = warmstart_pods(8, f"re{rnd}c{k}")
+                sess.solve_delta(added=add, removed=rm)
+                live += [p.name for p in add]
+            out.append(dict(epoch=sess.epoch,
+                            full_resends=sess.full_resends))
+            sess.close()
+        rpc = {dict(k)["outcome"]: v
+               for k, v in reg.counter(DELTA_RPC).values.items()}
+    finally:
+        server.stop(0)
+        service.close()
+    check(all(r["full_resends"] == 1 for r in out),
+          f"the re-established session resent more than once: {out}")
+    return dict(rounds=out, rpc_outcomes=rpc)
+
+
+def analysis_conformance() -> dict:
+    """(d): 13(c)'s wire delta chain and a re-established session under
+    the port's transition tap, checked against the model-checked
+    automaton."""
+    from karpenter_tpu_torch.analysis import conformance
+    from karpenter_tpu_torch.obs import protocol
+
+    t0 = time.perf_counter()
+    with protocol.recording() as rec:
+        chain = operator_delta_wire()
+        again = reestablished_session()
+    events = rec.events_by_session()
+    report = conformance.check_events(events)
+    check(report.ok, report.format())
+    check(len(events) == 2, f"{len(events)} sessions recorded, not 2")
+    counts: dict = {}
+    for seq in events.values():
+        for name, _attrs in seq:
+            counts[name] = counts.get(name, 0) + 1
+    return dict(sessions=report.sessions, events=report.events,
+                violations=len(report.violations), event_counts=counts,
+                chain_steps=chain["steps"], chain_p50_ms=chain["p50_ms"],
+                chain_p99_ms=chain["p99_ms"],
+                chain_cost_ratio=chain["cost_ratio"],
+                chain_launches=chain["launches"],
+                reestablished=again, wall_s=time.perf_counter() - t0)
+
+
+def phase_analysis(full, limit, slice_stats, slice_res):
+    """Phase 15: (a) ktlint and the lock order, (b) the protocol models,
+    (c) the sanitized serving stack with the 100k RPC, (d) trace
+    conformance of the wire delta chain.  Returns (c)'s kernel
+    launches."""
+    t_phase = time.perf_counter()
+    PHASE[0] = "analysis"
+    emit("analysis_lint", **analysis_lint())
+    emit("analysis_model", **analysis_model())
+    # the 8 clients' requests wait behind the 100k RPC in the admission
+    # queue, so the brownout ladder may step (a logged warning) and
+    # recover; any other trapped warning fails the run
+    n_faults = len(FAULTS.records)
+    launches, sanitized = analysis_sanitized(full, limit, slice_stats,
+                                             slice_res)
+    trapped = FAULTS.records[n_faults:]
+    check(all(r.startswith("karpenter_tpu_torch.admission.brownout: "
+                           "brownout ") for r in trapped),
+          f"unexpected warnings: {trapped}")
+    del FAULTS.records[n_faults:]
+    emit("analysis_sanitized", **sanitized, brownout_transitions=trapped)
+    emit("analysis_conformance", **analysis_conformance(),
+         phase_s=time.perf_counter() - t_phase)
+    guard_clean("analysis")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3699,6 +4086,7 @@ def main() -> int:
               "from the repository root", file=sys.stderr)
         return 2
     from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.models.catalog import generate_catalog
 
     logging.getLogger("karpenter_tpu_torch").addHandler(FAULTS)
     install_guard_watch()
@@ -3727,6 +4115,8 @@ def main() -> int:
         operator_launches = phase_operator(st, limit, slice_res)
         mesh_launches = phase_mesh(limit, stats, slice_res,
                                    RECORD["slice"]["wall_ms"])
+        analysis_launches = phase_analysis(generate_catalog(full=True),
+                                           limit, stats, slice_res)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3738,7 +4128,8 @@ def main() -> int:
         "replaces": replaces,
         "launches": (launches[name] + flush_launches[name]
                      + gang_launches[name] + service_launches[name]
-                     + operator_launches[name] + mesh_launches[name]),
+                     + operator_launches[name] + mesh_launches[name]
+                     + analysis_launches[name]),
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],

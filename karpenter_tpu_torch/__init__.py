@@ -8,3 +8,14 @@ unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+# Lock-discipline sanitizer (``analysis/sanitize.py``): KT_SANITIZE=1 wraps
+# the thread-sensitive serving classes in lock-assertion proxies that raise
+# on cross-thread re-entrancy and on acquisitions against the global lock
+# order.  Production leaves it off.
+import os as _os
+
+if _os.environ.get("KT_SANITIZE") == "1":
+    from .analysis import sanitize as _sanitize
+
+    _sanitize.install()

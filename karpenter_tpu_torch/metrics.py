@@ -394,10 +394,143 @@ TUNING_STEP_DURATION = "karpenter_tuning_step_duration_seconds"
 #: metric inventory of the names above: name -> (type, labels, help), the
 #: reference's help text (the warm series say what the port measures: a
 #: warm is the first run of a signature on a background thread, since
-#: eager PyTorch compiles nothing; SESSION_ADOPTIONS and
-#: MULTIHOST_FENCE_BYTES carry no entry, their reference text citing its
-#: change history)
+#: eager PyTorch compiles nothing; five solver families are reworded
+#: where the reference's text names its compile-behind or its own change
+#: history)
 INVENTORY = {
+    # the solver's own families (the reference's help text)
+    SCHEDULING_DURATION: (
+        "histogram", (),
+        "End-to-end batch scheduling duration per solve, seconds."),
+    TENSORIZE_DURATION: (
+        "histogram", (),
+        "Host tensorize (pods -> device tensors) duration per solver "
+        "wave, seconds; cache hits land in the lowest buckets."),
+    TENSORIZE_CACHE_HITS: (
+        "counter", ("tier",),
+        "Tensorize cache hits by tier: 'identity' (same pod objects "
+        "re-solved, pointer-compare fast path) or 'shape' (same "
+        "deployment shapes, tensors reused, only the counts vector "
+        "rebuilt).  A healthy steady-state provisioning loop runs >90% "
+        "hits."),
+    TENSORIZE_CACHE_MISSES: (
+        "counter", (),
+        "Tensorize cache misses (full host tensor build — new batch shape "
+        "or a provisioner/catalog/daemonset change rotated the context)."),
+    RELAX_DURATION: (
+        "histogram", (),
+        "Wall time of one relax-rung evaluation (eligibility partition + "
+        "fixed-iteration device solve + rounding/repair + cost compare), "
+        "seconds."),
+    RELAX_IMPROVEMENT: (
+        "gauge", (),
+        "Node-cost ratio relax/scan of the most recent relax-rung run "
+        "that reached a comparison (improved/tied/fallback): < 1.0 means "
+        "the rung found a cheaper packing than the vectorized FFD scan."),
+    CONSOLIDATION_SWEEP_DURATION: (
+        "histogram", (),
+        "Wall time of one consolidation what-if sweep (all candidates, "
+        "either path), seconds."),
+    CONSOLIDATION_SWEEP_SLOTS: (
+        "histogram", (),
+        "Candidate what-ifs per batched sweep dispatch (the N that used "
+        "to cost N sequential solver round trips)."),
+    WARMSTART_DISPLACED: (
+        "histogram", (),
+        "Pods the delta step had to (re-)place: added pods plus pods "
+        "displaced off reclaimed nodes."),
+    WARMSTART_DURATION: (
+        "histogram", (),
+        "Wall time of one warm-start delta step (bookkeeping + any "
+        "subproblem solve), seconds — the bench gates its p50 at 1 ms on "
+        "the steady-state host path."),
+    WARMSTART_SOLVES: (
+        "counter", ("mode",),
+        "Warm-start delta solves, by serving mode: 'noop' (removals only "
+        "— pure host bookkeeping), 'host' (unconstrained added pods "
+        "first-fit into surviving residual capacity, no device dispatch), "
+        "'scan' (the displaced subproblem ran the device scan seeded from "
+        "the previous assignment), 'full' (the perturbation exceeded "
+        "KT_DELTA_MAX_FRAC or a coupling guard tripped — full re-solve).  "
+        "A healthy steady-state chain is dominated by noop/host."),
+    HIER_BLOCKS: (
+        "histogram", (),
+        "Weakly-coupled blocks per hierarchical solve after LPT packing "
+        "of the constraint-reachability components into megabatch slots."),
+    HIER_DURATION: (
+        "histogram", (),
+        "End-to-end hierarchical solve duration, seconds (partition + "
+        "block waves + price loop + repair; excludes tensorize, reported "
+        "separately like flat's solve_ms)."),
+    HIER_PRICE_ITERATIONS: (
+        "histogram", (),
+        "Price-ascent waves actually run per hierarchical solve (0 = no "
+        "shared-capacity contention after the first block wave; capped at "
+        "KT_HIER_PRICE_ITERS)."),
+    HIER_REPAIR_PODS: (
+        "histogram", (),
+        "Straggler pods re-seated by the host-side repair pass after the "
+        "price budget expired (limit-evicted nodes' pods + "
+        "block-infeasible pods)."),
+    # reworded from the reference's: the port has no compile-behind
+    # outcome, and its fence reads the slot blocks of its own rank
+    SOLVER_BACKEND_DURATION: (
+        "histogram", ("backend",),
+        "Per-backend (tpu / native / oracle) solve duration, seconds.  On "
+        "the pipelined path (SolvePipeline) the tpu series spans enqueue "
+        "to read-back and therefore includes the overlap window in which "
+        "the host tensorizes the NEXT batch — it is the caller-visible "
+        "stage latency, not pure device time."),
+    CONSOLIDATION_SWEEPS: (
+        "counter", ("path",),
+        "Consolidation what-if sweeps, by execution path: 'batched' "
+        "(every candidate served as a slot of one batched device dispatch "
+        "— one dispatch, one read-back), 'serial' (every candidate on the "
+        "per-candidate fallback: non-device backend or a candidate set "
+        "the batch guards rejected), or 'mixed' (some slots batched, the "
+        "rest re-solved serially — infeasible / needs-new-node slots and "
+        "per-candidate carve-outs)."),
+    HIER_SOLVES: (
+        "counter", ("path",),
+        "Batches at/above KT_HIER_THRESHOLD pods by routing outcome: "
+        "'hierarchical' (block decomposition + price reconciliation "
+        "served), 'fallback_structure' (one coupling component / "
+        "inexpressible pods / existing-node batch — flat is the right "
+        "program), 'fallback_degraded' (a block wave hung or errored; "
+        "flat's degradation ladder served)."),
+    MULTIHOST_FENCE_BYTES: (
+        "counter", ("scope",),
+        "Per-host megabatch fence byte accounting: 'read' is what this "
+        "serving process actually transferred device-to-host (only the "
+        "slot blocks its rank owns), 'whole' is what a whole-batch "
+        "read-back would have transferred.  read/whole per host sits at "
+        "~1/N on an N-rank mesh; KT_MULTIHOST=0 forces the whole-batch "
+        "read (read == whole)."),
+    RELAX_TOTAL: (
+        "counter", ("outcome",),
+        "Convex-relaxation refinement rung evaluations on device-tier "
+        "solves (KT_RELAX), by outcome: 'improved' (the relax+round "
+        "solution cost strictly less than the scan's and shipped), 'tied' "
+        "(the rung reached the scan's cost; the scan solution ships), "
+        "'fallback' (rounding/repair could not produce a valid cheaper "
+        "solution, or the rung errored — the scan solution ships "
+        "unchanged), 'skipped' (the rung was enabled but did not run: no "
+        "eligible unconstrained pod groups, or a cold-served / "
+        "budget-constrained solve).  The shipped solution is min(scan, "
+        "relax+round) by construction — never worse than the scan."),
+    SESSION_ADOPTIONS: (
+        "counter", ("outcome",),
+        "Session-spool adoption attempts (fleet failover): any replica "
+        "can restore a specific session from the shared KT_SESSION_DIR "
+        "spool on demand, by outcome: 'adopted' (free lease claimed, "
+        "record consumed, next delta serves WARM), 'stolen' (the previous "
+        "owner's lease had expired — a dead replica's session picked up "
+        "after KT_SESSION_LEASE_S), 'lease_held' (typed refusal: a "
+        "sibling holds an unexpired lease — two replicas can never both "
+        "adopt a chain), 'missing' (no record; the client pays exactly "
+        "one re-establish), 'refused' (record failed the envelope checks "
+        "— also counted per-reason in the restore family), 'error' "
+        "(unexpected failure; cold start)."),
     SOLVER_COMPILE_IN_PROGRESS: (
         "gauge", (),
         "Background warms currently in flight (warm_startup, "

@@ -182,5 +182,5 @@ class ResultForwarder:
         for c in clients:
             try:
                 c.close()
-            except Exception:  # best-effort shutdown
+            except Exception:  # ktlint: allow[KT005] best-effort shutdown
                 pass

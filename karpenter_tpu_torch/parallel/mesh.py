@@ -312,9 +312,12 @@ def slot_mesh(mesh: Mesh) -> Mesh:
 
 
 @lru_cache(maxsize=64)
+@lru_cache(maxsize=64)
 def slot_sharding(mesh: Mesh) -> NamedSharding:
     """Leading-axis (dim 0 = request slot) sharding over
-    :func:`slot_mesh`; trailing axes whole — fully local per slot."""
+    :func:`slot_mesh`; trailing axes whole — fully local per slot.  Cached
+    per mesh, like :func:`axis_sharding`: the serving path looks it up per
+    flush."""
     return NamedSharding(slot_mesh(mesh), (SLOT_AXIS,))
 
 

@@ -113,6 +113,8 @@ def _screen_program(residual: torch.Tensor, member: torch.Tensor,
     return ok
 
 
+# ktlint: fence the screen IS the sync point — one dispatch + one
+# device-to-host read (plus the timed re-runs of the measure branch)
 def screen_subset_deletes(
     nodes: Sequence[SimNode],
     subsets: Sequence[Sequence[int]],   # K subsets of node indices
@@ -490,9 +492,9 @@ def sweep_what_ifs(
                 allow_new_nodes=True, max_new_nodes=max_new,
                 trace=trace,
             )
-        # per-candidate boxed outcome: one poisoned what-if must not fail
-        # the sweep's batchmates; the caller re-raises or skips per
-        # candidate
+        # ktlint: allow[KT005] per-candidate boxed outcome: one poisoned
+        # what-if must not fail the sweep's batchmates; the caller re-raises
+        # or skips per candidate
         except Exception as err:  # noqa: BLE001
             return err
 

@@ -53,9 +53,12 @@ def _drain_abandoned() -> None:
     for t in _ABANDONED:
         if deadline <= 0:
             break
+        # ktlint: allow[KT002] interpreter-exit drain deadline: runs from
+        # atexit after the controllers (and their injected clocks) are gone,
+        # and a fake-advanced clock must never shorten the real join grace
         t0 = _time.monotonic()
         t.join(deadline)
-        deadline -= _time.monotonic() - t0
+        deadline -= _time.monotonic() - t0  # ktlint: allow[KT002] see above
 
 #: default guard timeout, the reference's.  The reference sized it for
 #: compiled device programs of milliseconds to seconds; the port's group
@@ -75,6 +78,8 @@ def device_probe(device=None) -> Callable[[], None]:
     on a wedged card the read blocks, so the probe answers only once the
     card runs work again."""
 
+    # ktlint: fence the probe IS a device read: it answers only once the
+    # card runs work again
     def probe() -> None:
         import torch
 
@@ -140,9 +145,10 @@ class DeviceGuard:
         def work():
             try:
                 box["val"] = fn(*args, **kwargs)
-            # the expendable call thread boxes EVERY outcome and run()
-            # re-raises it on the caller thread — swallowing here would turn
-            # a device error into a phantom hang
+            # ktlint: allow[KT005] the expendable call thread boxes EVERY
+            # outcome (incl. KeyboardInterrupt) and run() re-raises it on
+            # the caller thread — swallowing here would turn a device error
+            # into a phantom hang
             except BaseException as e:  # noqa: BLE001 — re-raised in caller
                 box["err"] = e
             finally:

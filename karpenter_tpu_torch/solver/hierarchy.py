@@ -448,6 +448,8 @@ class ScoreStep:
                                     pin_memory=pin)
         self._mult_np = self.mult_host.numpy()
 
+    # ktlint: fence the price loop's one wait per iteration: the next dual
+    # update needs these scores on the host
     def __call__(self, lam: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """``(cost f32 [G], idx i32 [G])`` on the host under duals ``lam``."""
         self._mult_np[:] = np.exp(lam)  # float64 -> float32, as astype
@@ -644,6 +646,9 @@ def _solve_hierarchical(
         outs = wave(entries)
 
         # ---- price ascent (fixed budget, mirror-descent schedule) ------
+        # ktlint: allow[KT020] price waves are sequentially dependent —
+        # each dual update needs the PREVIOUS wave's usage; every wave is
+        # still ONE batched dispatch over all contending blocks
         for t in range(price_budget):
             usage = np.zeros((len(masks), P, st.R), dtype=np.float64)
             for bi, out in enumerate(outs):

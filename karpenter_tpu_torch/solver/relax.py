@@ -262,7 +262,10 @@ def _fma(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with one rounding.  The product of two float32
     is exact in float64; the float64 sum's rounding error comes from
     Knuth's two-sum, and :func:`_round32` rounds the exact sum."""
+    # ktlint: allow[KT006] the float32 product is exact in float64: the
+    # bits of the reference CPU program's FMA (tests/test_torch_relax.py)
     p = a.double() * b
+    # ktlint: allow[KT006] the exact sum, rounded once by _round32
     return _sum_round32(p, c.double() if torch.is_tensor(c) else c)
 
 
@@ -319,6 +322,8 @@ def _fma_chain(products: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros(products.shape[1:], dtype=torch.float32,
                       device=products.device)
     for k in range(products.shape[0]):
+        # ktlint: allow[KT006] float64 accumulator, rounded to float32 once
+        # per step: the reference program's FMA chain, bit for bit
         acc = _sum_round32(products[k], acc.double())
     return _ftz(acc)
 
@@ -346,6 +351,8 @@ def _relax_program(req: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"relax_iters {relax_iters} exceeds the step "
                          f"table ({len(_ETA_TABLE)})")
     feas_f = feas.to(torch.float32)
+    # ktlint: allow[KT006] exact float64 products for the FMA chains: the
+    # reference CPU program's float32 bits (tests/test_torch_relax.py)
     req64 = req.double()
     price_col = price[:, None]
 
@@ -355,6 +362,7 @@ def _relax_program(req: torch.Tensor, counts: torch.Tensor,
         return torch.where(s > 1e-30, d, 0.0) * counts[:, None]
 
     def util(x):                                   # [C, R]
+        # ktlint: allow[KT006] exact float64 products (see req64 above)
         load = _fma_chain(x.double()[:, :, None] * req64[:, None, :])
         return _ftz(load * alloc_inv)
 
@@ -366,6 +374,7 @@ def _relax_program(req: torch.Tensor, counts: torch.Tensor,
         e = _exp(v - torch.amax(v, dim=1, keepdim=True))
         w = _ftz(e / _seq_sum(e)[:, None])         # bottleneck mix
         m = _ftz(_ftz(price_col * w) * alloc_inv)  # [C, R]
+        # ktlint: allow[KT006] exact float64 products (see req64 above)
         return _fma_chain(req64.T[:, :, None] * m.double().T[:, None, :])
 
     x = renorm(torch.where(feas, x0, 0.0))
@@ -388,6 +397,8 @@ def _relax_program(req: torch.Tensor, counts: torch.Tensor,
     return bx, bf
 
 
+# ktlint: fence the relax rung's one device-to-host read — the
+# refinement program's result, read once per rung
 def _run_relax(req, counts, feas, alloc_inv, price, x0, relax_iters: int,
                device) -> Tuple[np.ndarray, float]:
     """Upload the numpy inputs, run the program on ``device``, and read

@@ -414,8 +414,8 @@ class _MegaCollector:
                         raise_on_exhaust=e["raise_on_exhaust"],
                         trace=e["trace"],
                     ))
-            # boxed per-slot outcome, re-raised by the request's own
-            # _MegaSlot.result()
+            # ktlint: allow[KT005] boxed per-slot outcome, re-raised
+            # by the request's own _MegaSlot.result()
             except BaseException as err:  # noqa: BLE001
                 self._slots[i] = ("err", err)
                 continue

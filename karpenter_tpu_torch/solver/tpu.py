@@ -217,6 +217,8 @@ def multihost_fence_enabled() -> bool:
     return os.environ.get("KT_MULTIHOST", "1") != "0"
 
 
+# ktlint: fence the per-host fence's one accessor: a megabatch's
+# device-to-host read of the slots this rank owns
 def read_slot_rows(arrays, *, local_only: bool = False):
     """Read back the leading (request-slot) axis of stacked megabatch
     arrays — the one accessor of the per-host fence.  Each array is a
@@ -1280,8 +1282,9 @@ class TpuSolver:
                         raise outs[0]
                 else:
                     self.solve(**kwargs)
-            # a warm failure is surfaced through on_done (the scheduler's
-            # callback logs it) and arms the retry backoff
+            # ktlint: allow[KT005] a warm failure is surfaced through
+            # on_done (the scheduler's callback logs it) and arms the retry
+            # backoff
             except Exception as e:
                 err = e
                 with self._lock:
@@ -1622,6 +1625,8 @@ class TpuSolver:
                 self._faults.sleep(effect)
 
     @staticmethod
+    # ktlint: fence books a dispatch's device time after its read-back:
+    # the end event is complete by then, so the wait costs nothing more
     def _book(marks) -> None:
         """Book the device time between a dispatch's CUDA event pair
         (obs/occupancy.py ``device_busy_ms``), once per dispatch."""
@@ -1629,6 +1634,8 @@ class TpuSolver:
             marks[1].synchronize()
             record_device_ms(marks[0].elapsed_time(marks[1]))
 
+    # ktlint: fence the one device-to-host read of a dispatch, behind the
+    # fence fault site — every serving path reads back through here
     def _read_back(self, carry, ys, marks=None):
         """The read-back half: the one device-to-host read of a dispatch,
         behind the ``fence`` fault site, booking the dispatch's device
@@ -1712,7 +1719,7 @@ class TpuSolver:
         return run, entry, NE, est_dims, full_dims, full_nr
 
     def _maybe_retry_exhausted(
-        self, carry, est_dims: dict, full_dims: dict, full_nr: bool,
+        self, carry_np, est_dims: dict, full_dims: dict, full_nr: bool,
         raise_on_exhaust: bool, retry,
     ) -> Optional["TpuSolveOutput"]:
         """Slot-exhaustion epilogue shared by ``solve`` and both pending
@@ -1721,10 +1728,12 @@ class TpuSolver:
         :class:`SlotsExhausted` under ``raise_on_exhaust`` while the
         full-budget signature has not run yet, else run ``retry()`` (a
         full-budget re-solve).  Returns None when the solve stands.
-        ``carry`` is one slot's host carry."""
+        ``carry_np`` is one slot's host carry (the rows ``_read_back``
+        returned)."""
         if full_nr or est_dims["NR"] >= full_dims["NR"]:
             return None
-        if int(carry[7]) < est_dims["NR"] or int(carry[11].sum()) <= 0:
+        if (int(carry_np[7]) < est_dims["NR"]
+                or int(carry_np[11].sum()) <= 0):
             return None
         full_key = _dims_key(full_dims)
         with self._lock:
@@ -2013,6 +2022,9 @@ class TpuSolver:
         for a rank holding no entry) and the blocks' CUDA event pairs."""
         from ..parallel.mesh import Shard, ShardedArray, _rank, slot_sharding
 
+        # ktlint: allow[KT011] slot_sharding is memoized per mesh (an
+        # lru_cache in parallel/mesh.py): a per-flush lookup of the layout
+        # built once, not a construction
         sh = slot_sharding(mesh)
         me = _rank()
         runs: List[list] = []  # [device, start, stop] per run of entries
@@ -2122,10 +2134,11 @@ class TpuSolver:
 
     # ---- result extraction ---------------------------------------------
     def _extract(
-        self, st, carry, ys, existing_nodes, NE, solve_ms
+        self, st, carry_np, ys_np, existing_nodes, NE, solve_ms
     ) -> TpuSolveOutput:
         (res, row_zone, row_dom, row_cand, row_price, selcnt, active,
-         n_used, zc, tot, prov_used, infeasible) = [np.asarray(x) for x in carry]
+         n_used, zc, tot, prov_used, infeasible) = [
+            np.asarray(x) for x in carry_np]
         n_used = int(n_used)
 
         new_nodes: List[SimNode] = []
@@ -2160,8 +2173,8 @@ class TpuSolver:
         assignments: Dict[str, str] = {}
         infeasible_map: Dict[str, str] = {}
         node_groups: Optional[Dict[int, set]] = None
-        if ys is not None:
-            takes = np.asarray(ys)  # [G, NR]
+        if ys_np is not None:
+            takes = np.asarray(ys_np)  # [G, NR]
             node_groups = {}
             for gi, g in enumerate(st.groups):
                 placed_slots = np.nonzero(takes[gi])[0]
@@ -2266,6 +2279,7 @@ class PendingTpuSolve:
         self._lock = threading.Lock()
         self._out: Optional[TpuSolveOutput] = None
 
+    # ktlint: fence result() IS the async handle's one device-to-host read
     def result(self) -> TpuSolveOutput:
         with self._lock:
             if self._out is None:
@@ -2336,6 +2350,8 @@ class PendingMegaSolve:
         self._lock = threading.Lock()
         self._outputs: Optional[List[object]] = None
 
+    # ktlint: fence the megabatch handle's one device-to-host read completes
+    # ALL slots of the dispatch
     def results(self) -> List[object]:
         with self._lock:
             if self._outputs is None:
@@ -2409,8 +2425,9 @@ class PendingMegaSolve:
                             mesh=self.mesh, full_nr=True,
                         ),
                     )
-            # per-slot boxed outcome: the exhausted slot's exception is
-            # returned in its slot so batchmates still get their results
+            # ktlint: allow[KT005] per-slot boxed outcome: the exhausted
+            # slot's exception is returned in its slot so batchmates still
+            # get their results; the caller re-raises per request
             except Exception as err:
                 outputs.append(err)
                 continue

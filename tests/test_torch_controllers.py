@@ -509,15 +509,21 @@ def test_fake_cloud_matches_reference(case):
     run_both(CLOUD_CASES[case])
 
 
-#: the serving series whose reference help text speaks of XLA compiles and
-#: cold tiers: the port keeps their names, types and labels and says what
-#: it measures instead (a warm is a signature's first run)
+#: the series whose reference help text speaks of XLA compiles, cold tiers
+#: or its own change history: the port keeps their names, types and labels
+#: and says what it measures instead (a warm is a signature's first run)
 REWORDED = ("karpenter_solver_compile_in_progress",
             "karpenter_solver_compile_duration_seconds",
             "karpenter_solver_cold_start_fallbacks_total",
             "karpenter_solver_megabatch_slots",
             "karpenter_solver_megabatch_flush_total",
-            "karpenter_solver_precompile_duration_seconds")
+            "karpenter_solver_precompile_duration_seconds",
+            "karpenter_solver_backend_duration_seconds",
+            "karpenter_solver_consolidation_sweeps_total",
+            "karpenter_solver_hier_solves_total",
+            "karpenter_solver_multihost_fence_bytes_total",
+            "karpenter_solver_relax_total",
+            "karpenter_solver_session_adoptions_total")
 
 
 def test_metric_help_text_is_the_reference():

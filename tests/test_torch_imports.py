@@ -3,7 +3,8 @@
 and the reference package BLOCKED (a meta-path finder refusing ``jax``,
 ``jaxlib``, ``ml_dtypes`` and ``karpenter_tpu`` / ``karpenter_tpu.*`` by
 exact name — the port's own ``karpenter_tpu_torch`` is not caught by
-it).  Entry points resolve their default device to the CUDA card and
+it).  The analysis package runs with torch, numpy and grpc blocked as
+well.  Entry points resolve their default device to the CUDA card and
 raise without one; ``chip_smoke.py`` refuses to run without a card or
 without the repository.
 """
@@ -93,9 +94,13 @@ def test_every_module_is_probed():
                  "providers.securitygroup", "cloud.batched",
                  "controllers.garbagecollect", "controllers.interruption",
                  "controllers.nodetemplate", "manifests", "operator", "cli",
-                 "admission.__main__"):
+                 "admission.__main__", "analysis", "analysis.__main__",
+                 "analysis.ktlint", "analysis.callgraph", "analysis.model",
+                 "analysis.conformance", "analysis.sanitize",
+                 "analysis.rules", "analysis.rules.kt001",
+                 "analysis.rules.kt025"):
         assert f"karpenter_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 90
+    assert len(MODULES) >= 120
 
 
 @pytest.mark.parametrize("module", MODULES + SCRIPTS)
@@ -105,6 +110,50 @@ def test_imports_without_jax_or_reference(probe, module):
 
 def test_nothing_blocked_was_loaded(probe):
     assert probe["leaked"] == []
+
+
+_LINT_PROBE = r"""
+import importlib, runpy, sys
+
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "karpenter_tpu", "torch", "numpy",
+           "grpc")
+
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+for name in ("karpenter_tpu_torch.analysis.model",
+             "karpenter_tpu_torch.analysis.conformance",
+             "karpenter_tpu_torch.analysis.rules"):
+    importlib.import_module(name)
+sys.argv = ["ktlint", "--select", "KT002"]
+try:
+    runpy.run_module("karpenter_tpu_torch.analysis", run_name="__main__")
+except SystemExit as e:
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    print("LEAKED", leaked)
+    raise
+"""
+
+
+def test_analysis_runs_without_torch_numpy_or_grpc():
+    """The analyzer, the model checker and the conformance checker are
+    pure stdlib: with torch, numpy and grpc blocked too, ``python -m
+    karpenter_tpu_torch.analysis --select KT002`` runs over the port and
+    the model module imports."""
+    env = {k: v for k, v in os.environ.items() if k != "KT_SANITIZE"}
+    env.update(PYTHONPATH=str(ROOT), KT_LINT_CACHE="0")
+    proc = subprocess.run([sys.executable, "-c", _LINT_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ktlint: 0 finding(s)" in proc.stdout
+    assert "LEAKED []" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
