@@ -172,7 +172,20 @@ no result):
     transition tap (``obs.protocol.recording()``), 13(c)'s wire delta
     chain and a second session closed and re-established: every session's
     event sequence a path of the model-checked automaton
-    (``conformance.check_events``).
+    (``conformance.check_events``);
+16. bench — the port's benchmark entry points: (a) ``python -m
+    karpenter_tpu_torch.cli bench --configs 2,6`` as a subprocess (the
+    repo root's ``bench_all_torch.py`` on the card): every line parses,
+    carries no ``error``, names the card in ``gpu``; config 2 (the
+    50,000-pod headline) leaves no pod infeasible; (b) in process, the
+    headline's tensorize tiers (``bench_torch.measure_tensorize``: cached
+    tensors equal to a from-scratch build) and
+    ``bench_torch.measure_hierarchical`` on the card (the overlap and
+    block-disjoint ladders, the packed-score kernel against its plain
+    version, the scale model from this run's own per-pod wave rate):
+    ``tensorize_parity``, ``hier_pallas_parity`` and
+    ``hier_disjoint_parity`` true; the budget flags the reference's
+    ``check_budgets`` raises on these records are printed, not failed on.
 
 After every phase but 11(c) and 12(d) the run checks that no device hang
 was counted, no solve was served degraded or host-routed by admission,
@@ -183,8 +196,9 @@ hand-written kernels', and the relax and screen programs' runs) are
 zeroed just before each path is driven and read just after; no
 hand-written kernel is on the relax, consolidation, repack,
 serving-request or delta path, so their kernel counts read 0 there (the
-kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s, 14(a)'s and
-15(c)'s launches to the slice's).
+kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s, 14(a)'s,
+15(c)'s and 16(b)'s launches to the slice's; 16(b)'s one
+``packed_scan_scores`` launch is the bench's own kernel-parity check).
 The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
 Everything is also written to ``chiprun_out/chip_smoke.json``.
@@ -4069,6 +4083,83 @@ def phase_analysis(full, limit, slice_stats, slice_res):
     return launches
 
 
+#: phase 16's configs through ``karpenter-tpu-torch bench`` and the
+#: subprocess's time limit
+BENCH = {"configs": "2,6", "timeout_s": 600}
+
+
+def bench_cli() -> dict:
+    """16(a): ``karpenter-tpu-torch bench`` as a subprocess on the card.
+    Every line must parse, carry no ``error`` and name the card; config 2
+    must seat every pod."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        _cli("bench", "--configs", BENCH["configs"]),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(Path(__file__).resolve().parent))
+    try:
+        out, err = proc.communicate(timeout=BENCH["timeout_s"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0,
+          f"cli bench exited {proc.returncode}: {err[-2000:]}")
+    lines = {}
+    for ln in out.strip().splitlines():
+        try:
+            rec = json.loads(ln)
+        except ValueError:
+            raise SmokeFailure(f"cli bench printed an unparsable line: "
+                               f"{ln[:300]}") from None
+        check("error" not in rec, f"cli bench config line failed: {rec}")
+        check(bool(rec.get("gpu")), f"cli bench line without gpu: {rec}")
+        check(rec.get("device") == "cuda", f"cli bench off the card: {rec}")
+        lines[rec["config"]] = rec
+    want = [int(c) for c in BENCH["configs"].split(",")]
+    check(sorted(lines) == want, f"cli bench printed configs {sorted(lines)}")
+    check(lines[2]["infeasible"] == 0,
+          f"config 2 left {lines[2]['infeasible']} pod(s) infeasible")
+    return dict(configs=lines, wall_s=time.perf_counter() - t0)
+
+
+def phase_bench():
+    """Phase 16: (a) ``cli bench --configs 2,6`` in a subprocess, (b) the
+    headline's tensorize tiers and ``bench_torch.measure_hierarchical`` in
+    process, kernel counts zeroed just before (b) and read just after.
+    Returns (b)'s kernel launches."""
+    import bench_torch
+    from karpenter_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    PHASE[0] = "bench"
+    cli = bench_cli()
+    emit("bench_cli", **cli)
+    pods, provs, catalog = bench_torch.build_scenario()
+    _st, tensorize = bench_torch.measure_tensorize(
+        pods, provs, catalog, bench_torch.build_scenario()[0])
+    check(tensorize["tensorize_parity"],
+          "cached tensorize diverged from the from-scratch build")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    hier = bench_torch.measure_hierarchical(None)
+    launches = {k.name: k.launches for k in kernels.ALL}
+    hier_s = time.perf_counter() - t0
+    check("hier_error" not in hier, f"hierarchical bench: {hier}")
+    check(hier["hier_pallas_parity"],
+          "the packed-score kernel diverged from its plain version")
+    check(hier["hier_disjoint_parity"],
+          "the block-disjoint hierarchical plan diverged from the flat one")
+    rec = {**tensorize, **hier,
+           "cost_ratio_vs_ffd": cli["configs"][2]["cost_ratio_vs_ffd"]}
+    emit("bench_hierarchical", **tensorize, **hier, launches=launches,
+         hier_s=hier_s,
+         budget_flags=bench_torch.check_budgets(rec).get("budget_flags", []),
+         phase_s=time.perf_counter() - t_phase)
+    guard_clean("bench")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4117,6 +4208,7 @@ def main() -> int:
                                    RECORD["slice"]["wall_ms"])
         analysis_launches = phase_analysis(generate_catalog(full=True),
                                            limit, stats, slice_res)
+        bench_launches = phase_bench()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4129,7 +4221,7 @@ def main() -> int:
         "launches": (launches[name] + flush_launches[name]
                      + gang_launches[name] + service_launches[name]
                      + operator_launches[name] + mesh_launches[name]
-                     + analysis_launches[name]),
+                     + analysis_launches[name] + bench_launches[name]),
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],

@@ -7,16 +7,16 @@ adds the operational entry points around it):
 - ``demo``         run the full controller loop against the fake cloud
 - ``solve``        one-shot batch solve of a scenario JSON (or a generated one)
 - ``serve``        start the gRPC solver sidecar
-- ``bench``        refused: the benchmark is the JAX package's ``bench_all.py``
+- ``bench``        run the BASELINE configs (the repo root's ``bench_all_torch.py``)
 - ``metrics-doc``  print the metric inventory as a Markdown table
 - ``version``      print the package version
 
-The port's differences: ``--device`` on demo/solve/serve names the torch
-device the in-process scheduler (or the sidecar) runs on — the CUDA card by
-default, raising without one; ``cpu`` runs the plain PyTorch path on the
-host.  ``--profile-port`` (the reference's JAX profiler server) is refused
-when non-zero: the port's device profile is ``python -m
-karpenter_tpu_torch.profile_wave``.  ``--jit-cache-dir`` is accepted, since
+The port's differences: ``--device`` on demo/solve/serve/bench names the
+torch device the in-process scheduler (or the sidecar, or the bench) runs
+on — the CUDA card by default, raising without one; ``cpu`` runs the plain
+PyTorch path on the host.  ``--profile-port`` (the reference's JAX
+profiler server) is refused when non-zero: the port's device profile is
+``python -m karpenter_tpu_torch.profile_wave``.  ``--jit-cache-dir`` is accepted, since
 deployments pass it, and says in one line that the port has no compile
 cache.  ``metrics-doc`` writes to stdout or ``--out``, never over the
 reference's ``docs/METRICS.md``.
@@ -153,10 +153,18 @@ def cmd_serve(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    print("bench: the benchmark (bench_all.py) drives the JAX package and is "
-          "not ported; on the card run `python3 chip_smoke.py`",
-          file=sys.stderr)
-    return 2
+    import subprocess
+
+    # bench_all_torch.py lives at the repo root, not in the installed package
+    script = Path(__file__).resolve().parent.parent / "bench_all_torch.py"
+    if not script.exists():
+        print("bench_all_torch.py not found (benchmarks run from a repo "
+              "checkout, not an installed package)", file=sys.stderr)
+        return 2
+    argv = [sys.executable, str(script), "--configs", args.configs]
+    if args.device:
+        argv += ["--device", args.device]
+    return subprocess.call(argv, cwd=str(script.parent))
 
 
 def cmd_metrics_doc(args) -> int:
@@ -291,8 +299,10 @@ def main(argv=None) -> int:
     _device_arg(v)
     v.set_defaults(fn=cmd_serve)
 
-    b = sub.add_parser("bench", help="refused: the benchmark is not ported")
+    b = sub.add_parser("bench", help="run the BASELINE benchmark configs "
+                                     "(bench_all_torch.py)")
     b.add_argument("--configs", default="1,2,3,4,5,6")
+    _device_arg(b)
     b.set_defaults(fn=cmd_bench)
 
     m = sub.add_parser("metrics-doc",

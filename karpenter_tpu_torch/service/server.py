@@ -12,7 +12,9 @@ default the card; a server built without one raises), the breaker-open /
 brownout host tier is an oracle scheduler on the serving scheduler's
 device, and ``Health`` reports the torch device.  The gRPC client is
 ``service/client.py`` and the observability HTTP server (``--obs-port``)
-``obs/export.py``; multi-host forwarding is not ported yet (ROADMAP A10).
+``obs/export.py``; a megabatch slot owned by another host is forwarded to
+its owner's sidecar (``KT_MULTIHOST_PEERS``) by ``parallel/forward.py``'s
+``ResultForwarder``.
 
 Run standalone:  python -m karpenter_tpu_torch.service.server --port 50151
 (``--device cpu --backend oracle`` on a host without a card).

@@ -858,3 +858,38 @@ def _solve_hierarchical(
         existing_nodes=[], solve_ms=elapsed_ms,
         tensorize_ms=tensorize_s * 1000.0,
     )
+
+
+# ---------------------------------------------------------------------------
+# scale model
+# ---------------------------------------------------------------------------
+
+
+def scale_model(measured: dict, n_pods: int) -> dict:
+    """Project the hierarchical wall at ``n_pods`` from one measured run —
+    pure host math, the reference's model with one difference: the device
+    per-pod rate ``measured['device_per_pod_us']`` is required (a missing
+    one raises ``KeyError``).  The reference falls back to a 50k-pods-in-
+    24-ms constant taken from a JAX-on-CPU run; the port projects only from
+    a rate measured on its own device.
+
+    Stage scaling: partition/entry build and repair are host-linear in the
+    pod count; a block wave is ONE batched dispatch whose per-slot scan
+    state is the block's share ``n_pods / blocks``, so device wave time
+    scales with the BLOCK size, not the batch."""
+    n0 = max(1, int(measured.get("n_pods", 1)))
+    blocks = max(1, int(measured.get("blocks", 1)))
+    waves = max(1, int(measured.get("waves", 1)))
+    s = n_pods / n0
+    host_ms = (float(measured.get("partition_ms", 0.0))
+               + float(measured.get("entries_ms", 0.0))) * s
+    per_pod_us = float(measured["device_per_pod_us"])
+    dispatch_ms = float(measured.get("dispatch_overhead_ms", 2.0))
+    wave_ms = per_pod_us * (n_pods / blocks) / 1000.0 + dispatch_ms
+    repair_ms = float(measured.get("repair_ms", 0.0)) * s
+    total = host_ms + waves * wave_ms + repair_ms
+    return {
+        "n_pods": int(n_pods), "blocks": blocks, "waves": waves,
+        "host_ms": round(host_ms, 2), "wave_ms": round(wave_ms, 2),
+        "repair_ms": round(repair_ms, 2), "total_ms": round(total, 2),
+    }

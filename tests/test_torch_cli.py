@@ -6,8 +6,9 @@ the reference package's, on the CPU, each command in a fresh process.
 the reference's CLI prints for the same arguments (``solve``'s wall time
 aside); the remote demo — ``cli serve --device cpu`` as a sidecar and
 ``cli demo --solver-address`` with no card visible — prints what the
-in-process demo prints.  The port refuses ``bench`` and a non-zero
-``--profile-port`` with their messages, says in one line that
+in-process demo prints.  The port refuses ``bench`` without a card (it
+runs ``bench_all_torch.py``, on the card or with ``--device cpu``) and a
+non-zero ``--profile-port``, with their messages, says in one line that
 ``--jit-cache-dir`` has no effect, and writes ``metrics-doc`` to stdout
 or ``--out`` but never over the reference's ``docs/METRICS.md``.
 
@@ -176,9 +177,12 @@ def test_remote_demo_through_a_sidecar_prints_the_in_process_lines():
 
 
 def test_bench_is_refused_with_its_message():
-    b = port_cli("bench")
-    assert b.returncode == 2 and "not ported" in b.stderr
-    assert "chip_smoke.py" in b.stderr
+    # the bench runs on the card: without one and without --device it
+    # refuses with an error line naming CUDA
+    b = port_cli("bench", "--configs", "6", env={"CUDA_VISIBLE_DEVICES": ""})
+    assert b.returncode != 0
+    rec = json.loads(b.stdout.strip().splitlines()[-1])
+    assert rec["value"] is None and "CUDA" in rec["error"]
 
 
 @pytest.mark.parametrize("command", ["demo", "serve"])

@@ -1,9 +1,11 @@
-"""The port stands alone: every ``karpenter_tpu_torch`` module, and
-``chip_smoke.py`` with the script it drives, imports with JAX, ml_dtypes
-and the reference package BLOCKED (a meta-path finder refusing ``jax``,
-``jaxlib``, ``ml_dtypes`` and ``karpenter_tpu`` / ``karpenter_tpu.*`` by
-exact name — the port's own ``karpenter_tpu_torch`` is not caught by
-it).  The analysis package runs with torch, numpy and grpc blocked as
+"""The port stands alone: every ``karpenter_tpu_torch`` module,
+``chip_smoke.py`` with the script it drives, and the benchmark entry
+points ``bench_torch.py`` and ``bench_all_torch.py`` import with JAX,
+ml_dtypes, the reference package and the reference's benchmarks BLOCKED
+(a meta-path finder refusing ``jax``, ``jaxlib``, ``ml_dtypes``,
+``karpenter_tpu`` / ``karpenter_tpu.*``, ``bench`` and ``bench_all`` by
+exact name — the port's own ``karpenter_tpu_torch`` and ``bench_torch``
+are not caught by it).  The analysis package runs with torch, numpy and grpc blocked as
 well.  Entry points resolve their default device to the CUDA card and
 raise without one; ``chip_smoke.py`` refuses to run without a card or
 without the repository.
@@ -28,13 +30,15 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(
     m.name for m in pkgutil.walk_packages(
         karpenter_tpu_torch.__path__, prefix="karpenter_tpu_torch."))
-#: the port's scripts outside the package (``chip_smoke.py`` drives them)
-SCRIPTS = ["chip_smoke", "scripts.dryrun_multihost_torch"]
+#: the port's scripts outside the package (``chip_smoke.py`` drives them;
+#: the benchmark entry points)
+SCRIPTS = ["chip_smoke", "scripts.dryrun_multihost_torch", "bench_torch",
+           "bench_all_torch"]
 
 _PROBE = r"""
 import importlib, json, sys
 
-BLOCKED = ("jax", "jaxlib", "ml_dtypes", "karpenter_tpu")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "karpenter_tpu", "bench", "bench_all")
 
 
 class Blocker:
