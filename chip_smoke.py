@@ -52,12 +52,12 @@ no result):
    the limit held; (b) on the config-4 repack fleet: the consolidation
    evaluation's screen step at 5,000 nodes (compat rows, one screen of
    every single and structured subset on the card), one full
-   deprovisioning reconcile at 200 nodes (the screen on the card, a
+   deprovisioning reconcile at 100 nodes (the screen on the card, a
    proposed action executed, the fleet settled, a warm reconcile), and
    the ladder driven to convergence at 100 nodes (no pod pending, every
    pod bound once, no node over its allocatable, a lower cost); (c) a
-   100-node fleet driven to convergence on ``cuda`` and on ``cpu``: equal
-   actions, final cluster and bindings.  The sizes are cut from the
+   100-node fleet driven to convergence on ``cuda`` (that is (b)'s run)
+   and on ``cpu``: equal actions, final cluster and bindings.  The sizes are cut from the
    reference bench's 5,000 and 2,000 nodes to fit the time
    (:data:`REPACK_SIZES`);
 10. serving — (a) the reference bench's 32 serving requests (320 pods in 8
@@ -83,9 +83,9 @@ no result):
     solved like the slice (limit at 99% of this batch's own buy):
     hierarchical routing, one ``price_step_scores`` launch per price
     iteration, the limit held, every gang all or none with the typed
-    reason, both doomed gangs retracted; (b) the reference bench's
-    ``measure_gang`` on ``cuda`` (atomicity in 4 variants, co-location
-    packing against ``KT_GANG=0``, the gang-free latency ratio), and a
+    reason, both doomed gangs retracted; (b) ``bench_torch.measure_gang``
+    on ``cuda`` (atomicity in 4 variants, co-location packing against
+    ``KT_GANG=0``, the gang-free latency ratio over 3 pairs), and a
     gang-bearing hierarchical batch on ``cuda`` and ``cpu`` (equal plans);
     (c) ``device_hang@fence`` injected into a fresh ``auto`` scheduler
     (the batch served by a host tier, one hang counted, the probe
@@ -147,8 +147,9 @@ no result):
     (NR >= 2048, C >= 512; equal node multisets and costs), 8 serving
     requests in one sharded flush, one block on the card (every plan
     equal to its solo plan), the 16-candidate sweep of phase 8 (equal
-    decisions, one dispatch); (c) two ranks sharing the card over gloo
-    (``scripts/dryrun_multihost_torch.py``): the host-major layout on the
+    decisions, one dispatch); (c) two ranks sharing the card over gloo,
+    four mesh entries each (``scripts/dryrun_multihost_torch.py``, the
+    bench's ``measure_multihost_fence`` layout): the host-major layout on the
     real ranks, an 8-slot megabatch served SPMD with each rank reading
     exactly half the fence bytes, foreign slots typed ``SlotNotOwned``
     with their owner, owned plans equal to serial solves, and one foreign
@@ -185,7 +186,23 @@ no result):
     version, the scale model from this run's own per-pod wave rate):
     ``tensorize_parity``, ``hier_pallas_parity`` and
     ``hier_disjoint_parity`` true; the budget flags the reference's
-    ``check_budgets`` raises on these records are printed, not failed on.
+    ``check_budgets`` raises on these records are printed, not failed on;
+    (c) in process, at the bench's sizes, the four ``bench_torch`` probes
+    whose paths no earlier phase drives: ``measure_warm_coldstart`` (a
+    fresh process's first 320-pod serving solve on the card with and
+    without the bucket warm; both children exit 0 and the warmed one is
+    not served cold), ``measure_multihost_fence`` (14(c)'s two-rank
+    verdict, not run again, then the lone-request per-host-fence A/B over
+    8 virtual shards in a fresh process; ``multihost_parity`` true, the
+    fence fraction and the A/B ratio printed), ``measure_replay_fidelity``
+    (a seeded bursty capture replayed through an oracle replica over gRPC;
+    no replay error, the class mix intact) and ``measure_tuning`` (the
+    static / learn / judged replays of three captures; no replay error);
+    no hand-written kernel launches there, in process or in the child
+    processes (each prints its own counts, zeroed before its work: the
+    warm cold start processes, 14(c)'s ranks, the A/B runs); the budget
+    flags are printed, not failed on, and a probe that raises fails the
+    run.
 
 After every phase but 11(c) and 12(d) the run checks that no device hang
 was counted, no solve was served degraded or host-routed by admission,
@@ -195,13 +212,15 @@ line).  Launch counts (the
 hand-written kernels', and the relax and screen programs' runs) are
 zeroed just before each path is driven and read just after; no
 hand-written kernel is on the relax, consolidation, repack,
-serving-request or delta path, so their kernel counts read 0 there (the
+serving-request or delta path or 16(c)'s, so their kernel counts read 0
+there (the
 kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s, 14(a)'s,
 15(c)'s and 16(b)'s launches to the slice's; 16(b)'s one
 ``packed_scan_scores`` launch is the bench's own kernel-parity check).
 The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
-Everything is also written to ``chiprun_out/chip_smoke.json``.
+Everything is also written to ``chiprun_out/chip_smoke.json``, with the
+run's wall seconds (``wall_s``).
 """
 
 from __future__ import annotations
@@ -889,39 +908,6 @@ def phase_parity(nd: int, per: int):
 # ---------------------------------------------------------------------------
 
 
-def relax_pods(n_per: int, n_dep: int = 20, spread_deps: int = 0,
-               tag: str = "rx"):
-    """Complementary-resource deployments cycling cpu-heavy (1.0–2.5 cpu,
-    0.25 GiB), memory-heavy (0.1–0.25 cpu, 6–10 GiB) and balanced
-    (0.5–1.5 cpu, 2–4 GiB) — the batch where a global packing beats
-    per-group first-fit.  The first ``spread_deps`` deployments carry a
-    hard zone spread (the reference bench's ``_relax_pods``)."""
-    from karpenter_tpu_torch.models.pod import (
-        LabelSelector,
-        PodSpec,
-        TopologySpreadConstraint,
-    )
-
-    pods = []
-    for d in range(n_dep):
-        kind = d % 3
-        if kind == 0:
-            cpu, mem = 1.0 + (d % 4) * 0.5, 0.25 * GIB
-        elif kind == 1:
-            cpu, mem = 0.1 + 0.05 * (d % 4), (6.0 + 2 * (d % 3)) * GIB
-        else:
-            cpu, mem = 0.5 * (1 + d % 3), 2.0 * GIB * (1 + d % 2)
-        sel = LabelSelector.of({"app": f"{tag}{d}"})
-        tsc = ([TopologySpreadConstraint(1, ZONE, "DoNotSchedule", sel)]
-               if d < spread_deps else [])
-        for i in range(n_per):
-            pods.append(PodSpec(
-                name=f"{tag}{d}-{i}", labels={"app": f"{tag}{d}"},
-                requests={"cpu": cpu, "memory": mem},
-                topology_spread=list(tsc), owner_key=f"{tag}{d}"))
-    return pods
-
-
 def check_plan(pods, res, provisioners, st) -> None:
     """Every pod seated exactly once, no node over its allocatable, every
     provisioner within its limits."""
@@ -1124,16 +1110,17 @@ def time_relax_program(sched, scan, pods, catalog) -> dict:
 
 
 def phase_relax():
+    import bench_torch as bt
     from karpenter_tpu_torch.models.catalog import generate_catalog
 
     catalog = generate_catalog(full=True)
     t0 = time.perf_counter()
-    pods = relax_pods(2500)
+    pods = bt._relax_pods(2500)
     sched, scan, big = relax_case(pods, catalog)
     check(big["outcomes"]["improved"] == 1 and big["outcomes"]["fallback"] == 0,
           "the rung did not improve the 50,000-pod unconstrained batch")
     program = time_relax_program(sched, scan, pods, catalog)
-    _s, _scan, mixed = relax_case(relax_pods(250, spread_deps=10), catalog)
+    _s, _scan, mixed = relax_case(bt._relax_pods(250, spread_deps=10), catalog)
     emit("relax", unconstrained_50k=big, mixed_5k=mixed, program=program,
          phase_s=time.perf_counter() - t0)
 
@@ -1156,31 +1143,6 @@ def config4_fleet(n: int):
                                          size=rng.randint(1, 5))):
             node.pods.append(PodSpec(name=f"n{i}-p{j}",
                                      requests={"cpu": float(c)}))
-        nodes.append(node)
-    return nodes
-
-
-def sweep_cluster(n_nodes: int = 300, npods: int = 28):
-    """``n_nodes`` existing m5.4xlarge nodes, each holding ``npods`` pods
-    of 6 deployments (0.25–0.75 cpu, 0.5–3.5 GiB)."""
-    from karpenter_tpu_torch.models.pod import PodSpec
-    from karpenter_tpu_torch.solver.types import SimNode
-
-    nodes = []
-    for i in range(n_nodes):
-        node = SimNode(
-            instance_type="m5.4xlarge", provisioner="default",
-            zone="zone-1a", capacity_type="on-demand", price=0.768,
-            allocatable={"cpu": 16.0, "memory": 64 * GIB, "pods": 110.0},
-            existing=True, name=f"sw{i}")
-        node.stamp_labels()
-        for j in range(npods):
-            g = j % 6
-            node.pods.append(PodSpec(
-                name=f"sw{i}-p{j}",
-                requests={"cpu": 0.25 * (1 + g % 3),
-                          "memory": (0.5 + g % 4) * GIB},
-                owner_key=f"d{g}"))
         nodes.append(node)
     return nodes
 
@@ -1237,6 +1199,7 @@ def time_screen_program(nodes) -> dict:
 def phase_consolidation():
     import torch
 
+    import bench_torch as bt
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.models.catalog import generate_catalog
     from karpenter_tpu_torch.solver import consolidation as cons
@@ -1269,7 +1232,7 @@ def phase_consolidation():
                   peak_mem_gib=peak, cpu_s=cpu_s)
 
     catalog = generate_catalog(full=False)
-    cluster = sweep_cluster()
+    cluster = bt._sweep_cluster()
     cands = [[i] for i in range(16)]
     prov = provisioner()
     sched = BatchScheduler(backend="tpu")
@@ -1324,9 +1287,11 @@ def phase_consolidation():
 #: what-if over 240 of 300 nodes), so a full evaluation at 5,000 nodes
 #: does not fit this script's time: the screen step runs at 5,000, the
 #: rest at these sizes, cut again (from 300 and 200) when phase 11 came in,
-#: and the convergence again (from 150) when phase 12 came in (PERF.md §4)
-REPACK_SIZES = {"screen": 5000, "reconcile": 200, "converge": 100,
-                "parity": 100}
+#: the convergence again (from 150) when phase 12 came in, and the one
+#: full reconcile again (from 200) when phase 16(c) came in (PERF.md §4);
+#: (c)'s cuda-vs-cpu parity runs at the convergence's size, its cuda run
+#: being (b)'s
+REPACK_SIZES = {"screen": 5000, "reconcile": 100, "converge": 100}
 
 
 def provision_through_controller(catalog, limit, pods):
@@ -1466,8 +1431,10 @@ def phase_controllers(slice_limit, slice_res, pods):
     reset_name_counters()
     cons.SCREEN_PROGRAM.reset()
     kernels.reset_counts()
-    state, repack, _keys = repack_to_convergence(
+    t0 = time.perf_counter()
+    state, repack, keys = repack_to_convergence(
         catalog, REPACK_SIZES["converge"], "auto", None)
+    converge_s = time.perf_counter() - t0
     repack["kernel_launches"] = {k.name: k.launches for k in kernels.ALL}
     check(not any(repack["kernel_launches"].values()),
           "a hand-written kernel launched on the repack path")
@@ -1480,32 +1447,33 @@ def phase_controllers(slice_limit, slice_res, pods):
     check(repack["screen_program_runs"].get("cuda", 0) >= 1
           and not repack["screen_program_runs"].get("cpu"),
           "the repack's screens did not run on the card")
+    # (c) the same decisions on cuda and on cpu: the cuda run is (b)'s
+    # convergence, from the same counters at the same size
+    cuda_run = (keys, cluster_plan(state), dict(state.bindings), repack,
+                converge_s)
     del state
     emit("controllers_repack", **repack)
 
-    # (c) the same decisions on cuda and on cpu
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        reset_name_counters()
-        cons.SCREEN_PROGRAM.reset()
-        t0 = time.perf_counter()
-        st, info, keys = repack_to_convergence(
-            catalog, REPACK_SIZES["parity"], "auto", dev)
-        runs[dev] = (keys, cluster_plan(st), dict(st.bindings), info,
-                     time.perf_counter() - t0)
-        faults = cluster_faults(st)
-        check(not faults, f"the {dev} parity cluster is unsound: "
-              f"{faults[:5]}")
-        check(set(cons.SCREEN_PROGRAM.runs) == {dev},
-              f"the {dev} parity run screened on {cons.SCREEN_PROGRAM.runs}")
-    (kg, pg, bg, ig, tg), (kc, pc, bc, ic, tc) = runs["cuda"], runs["cpu"]
+    reset_name_counters()
+    cons.SCREEN_PROGRAM.reset()
+    t0 = time.perf_counter()
+    st, info, keys = repack_to_convergence(
+        catalog, REPACK_SIZES["converge"], "auto", "cpu")
+    cpu_run = (keys, cluster_plan(st), dict(st.bindings), info,
+               time.perf_counter() - t0)
+    faults = cluster_faults(st)
+    check(not faults, f"the cpu parity cluster is unsound: {faults[:5]}")
+    check(set(cons.SCREEN_PROGRAM.runs) == {"cpu"},
+          f"the cpu parity run screened on {cons.SCREEN_PROGRAM.runs}")
+    (kg, pg, bg, ig, tg), (kc, pc, bc, ic, tc) = cuda_run, cpu_run
     check(kg == kc, f"cuda and cpu decided differently: {kg} vs {kc}")
     check(pg == pc and bg == bc,
           "cuda and cpu converged to different clusters")
     check(ig["final_cost"] < ig["initial_cost"] and ig["pending_end"] == 0,
           "the parity fleet did not converge")
     check(not FAULTS.records, f"the port fell back: {FAULTS.records}")
-    emit("controllers_parity", nodes=REPACK_SIZES["parity"], actions=len(kg),
+    emit("controllers_parity", nodes=REPACK_SIZES["converge"],
+         actions=len(kg),
          action_nodes=ig["action_nodes"], decisions_equal=True,
          final_plan_equal=True, nodes_end=ig["nodes_end"],
          final_cost=ig["final_cost"], cuda_s=tg, cpu_s=tc,
@@ -1523,43 +1491,6 @@ def phase_controllers(slice_limit, slice_res, pods):
 #: steps); the constrained chain's step count is this script's choice
 SERVING = {"clients": 32, "flushes": (1, 8, 32), "ws_pods": 20_000,
            "churn": 8, "ws_steps": 40, "spread_steps": 20}
-
-
-def serving_pods(client: int, n_groups: int = 8, per: int = 40):
-    """One serving client's batch (the reference bench's ``_serving_pods``):
-    8 zone-spread groups of 40, the same shapes for every client (one
-    bucket) but distinct pods, labels and requests per client."""
-    from karpenter_tpu_torch.models.pod import (
-        LabelSelector,
-        PodSpec,
-        TopologySpreadConstraint,
-    )
-
-    pods = []
-    for gi in range(n_groups):
-        sel = LabelSelector.of({"app": f"c{client}-g{gi}"})
-        for i in range(per):
-            pods.append(PodSpec(
-                name=f"c{client}-g{gi}-{i}",
-                labels={"app": f"c{client}-g{gi}"},
-                requests={"cpu": 0.25 * (1 + (gi + client) % 6),
-                          "memory": float(1 + (gi + client) % 3) * GIB},
-                topology_spread=[TopologySpreadConstraint(
-                    1, ZONE, "DoNotSchedule", sel)],
-                owner_key=f"c{client}-g{gi}"))
-    return pods
-
-
-def warmstart_pods(n: int, tag: str):
-    """Unconstrained steady-state pods in 6 deployment shapes (the
-    reference bench's ``_warmstart_pods``)."""
-    from karpenter_tpu_torch.models.pod import PodSpec
-
-    return [PodSpec(
-        name=f"{tag}-{i}", labels={"app": f"ws{i % 6}"},
-        requests={"cpu": 0.25 * (1 + i % 6 % 3),
-                  "memory": (0.5 + i % 6 % 4) * 2**30},
-        owner_key=f"ws{i % 6}") for i in range(n)]
 
 
 def spread_deployment(tag: str, n: int):
@@ -1657,6 +1588,7 @@ def serving_megabatch(catalog):
     """(a): flushes of 1, 8 and 32 serving requests against the serial
     baseline; every flushed plan against its solo plan; the 32-flush on
     ``cpu``; one flush's launches and host syncs."""
+    import bench_torch as bt
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.metrics import (
         MEGABATCH_SLOTS,
@@ -1666,7 +1598,7 @@ def serving_megabatch(catalog):
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
 
     provs = [provisioner()]
-    clients = [serving_pods(c) for c in range(SERVING["clients"])]
+    clients = [bt._serving_pods(c) for c in range(SERVING["clients"])]
     reg = Registry()
     sched = BatchScheduler(backend="auto", registry=reg)
     # warm the request's shape alone and at the flush rungs through the
@@ -1755,11 +1687,12 @@ def serving_megabatch(catalog):
 def serving_hier_flush(sched, solo, small, full, limit, slice_res):
     """(b): the slice's 100,000-pod batch (full catalog, the slice's limit)
     in one flush beside 7 serving requests (small catalog, as in (a))."""
+    import bench_torch as bt
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.metrics import HIER_SOLVES
 
     big = deployments(40, 2500)
-    clients = [serving_pods(c) for c in range(7)]
+    clients = [bt._serving_pods(c) for c in range(7)]
     reqs = [dict(pods=big, provisioners=[provisioner(limit)],
                  instance_types=full)]
     reqs += [dict(pods=p, provisioners=[provisioner()],
@@ -1805,12 +1738,13 @@ def serving_delta_unconstrained(catalog):
     """(c): the reference bench's ``measure_warmstart`` on the card."""
     import random
 
+    import bench_torch as bt
     from karpenter_tpu_torch.metrics import Registry
     from karpenter_tpu_torch.models.tensorize import TensorizeCache, tensorize
     from karpenter_tpu_torch.solver.tpu import TpuSolver
 
     provs = [provisioner()]
-    pods = warmstart_pods(SERVING["ws_pods"], "ws")
+    pods = bt._warmstart_pods(SERVING["ws_pods"], "ws")
     solver = TpuSolver()
     cache = TensorizeCache()
     names_from()
@@ -1824,7 +1758,7 @@ def serving_delta_unconstrained(catalog):
         rm = rng.sample(live, SERVING["churn"])
         rms = set(rm)
         live = [n for n in live if n not in rms]
-        add = warmstart_pods(SERVING["churn"], f"wsc{k}")
+        add = bt._warmstart_pods(SERVING["churn"], f"wsc{k}")
         out = solver.solve_delta(
             cur, added=add, removed=rm, provisioners=provs,
             instance_types=catalog, tensorize_cache=cache, registry=reg)
@@ -1860,6 +1794,7 @@ def constrained_chain(device, n_pods: int, steps: int, churn: int = 8):
     Returns (modes, final result, step walls ms, base wall ms)."""
     import random
 
+    import bench_torch as bt
     from karpenter_tpu_torch.metrics import Registry
     from karpenter_tpu_torch.models.catalog import generate_catalog
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
@@ -1867,7 +1802,7 @@ def constrained_chain(device, n_pods: int, steps: int, churn: int = 8):
     catalog = generate_catalog(full=False)
     provs = [provisioner()]
     sched = BatchScheduler(backend="tpu", device=device, registry=Registry())
-    pods = warmstart_pods(n_pods, "cs")
+    pods = bt._warmstart_pods(n_pods, "cs")
     names_from()
     cur, base_ms = _sync_any(device, lambda: sched.solve(
         pods, provs, catalog, relax=False))
@@ -2033,19 +1968,10 @@ def guard_clean(after: str) -> None:
 
 
 #: phase 11's sizes: the slice's 40 x 2,500 pods plus 32 gangs of 16
-#: members (the reference bench's ``measure_gang`` member), and that
-#: bench's 9 paired latency samples
-GANGS = {"gangs": 32, "size": 16, "bench_pairs": 9}
-
-
-def gang_member(gid: str, i: int, size: int, cpu: float = 1.0, sel=None):
-    """One gang member: ``measure_gang``'s shape (1 cpu, 0.5 GiB)."""
-    from karpenter_tpu_torch.models.pod import PodSpec
-
-    return PodSpec(name=f"{gid}-m{i}", labels={"app": gid},
-                   requests={"cpu": cpu, "memory": 0.5 * GIB},
-                   node_selector=dict(sel or {}), owner_key=gid,
-                   gang_id=gid, gang_size=size)
+#: members (``bench_torch._gang_member``), and 3 paired latency samples
+#: for (b)'s ``measure_gang`` (the bench runs 9; cut when phase 16(c) came
+#: in, since each pair takes about 11 s on the card)
+GANGS = {"gangs": 32, "size": 16, "bench_pairs": 3}
 
 
 def gang_batch(nd: int, per: int, n_gangs: int, size: int = 16,
@@ -2053,13 +1979,15 @@ def gang_batch(nd: int, per: int, n_gangs: int, size: int = 16,
     """``deployments(nd, per)`` plus ``n_gangs`` gangs of ``size``, one gang
     doomed by a member pinned to ``zone-none``, and one short roster (3/4
     of its declared members).  Returns (pods, {gang id: members})."""
-    gangs = {f"train{g}": [gang_member(f"train{g}", i, size)
+    import bench_torch as bt
+
+    gangs = {f"train{g}": [bt._gang_member(f"train{g}", i, size)
                            for i in range(size)] for g in range(n_gangs)}
-    doomed = [gang_member("doomed", i, size) for i in range(size)]
-    doomed[size // 2] = gang_member("doomed", size // 2, size,
-                                    sel={ZONE: "zone-none"})
+    doomed = [bt._gang_member("doomed", i, size) for i in range(size)]
+    doomed[size // 2] = bt._gang_member("doomed", size // 2, size,
+                                       sel={ZONE: "zone-none"})
     gangs["doomed"] = doomed
-    gangs["short"] = [gang_member("short", i, size)
+    gangs["short"] = [bt._gang_member("short", i, size)
                       for i in range(size * 3 // 4)]
     pods = deployments(nd, per, tag)
     for members in gangs.values():
@@ -2131,130 +2059,6 @@ def gang_hier_100k():
         infeasible=len(res.infeasible), cpu_limit=limit,
         cpu_shipped=shipped, free_nodes=len(free.nodes),
         launches=launches, phase_s=time.perf_counter() - t0)
-
-
-def gang_bench(device=None) -> dict:
-    """(b): the reference bench's ``measure_gang`` through the port on
-    ``device`` (the bench's ``backend="tpu"``)."""
-    import dataclasses
-    import gc
-
-    from karpenter_tpu_torch.models.catalog import DEFAULT_ZONES, generate_catalog
-    from karpenter_tpu_torch.models.pod import PodSpec
-    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
-    from karpenter_tpu_torch.solver.types import SimNode
-
-    catalog = generate_catalog(full=False)
-    provs = [provisioner()]
-
-    def sched():
-        return BatchScheduler(backend="tpu", device=device)
-
-    # (a) atomicity under engineered infeasibility, 4 variants
-    tally = dict(violations=0, untyped=0, retracted=0, placed=0)
-    for v in range(4):
-        ok = [gang_member("bg-ok", i, 4) for i in range(4)]
-        doomed = [gang_member("bg-pin", i, 4 + v) for i in range(4 + v)]
-        doomed[v % len(doomed)] = dataclasses.replace(
-            doomed[v % len(doomed)], node_selector={ZONE: "zone-none"})
-        short = [gang_member("bg-short", i, 8) for i in range(3 + v)]
-        singles = [PodSpec(name=f"bs{v}-{i}", labels={"app": "bs"},
-                           requests={"cpu": 0.5, "memory": 0.5 * GIB},
-                           owner_key="bs") for i in range(8)]
-        res = sched().solve(ok + doomed + singles + short, provs, catalog)
-        audit = gang_audit(res, {"ok": ok, "pin": doomed, "short": short})
-        tally["violations"] += audit["violations"]
-        tally["untyped"] += audit["untyped"]
-        tally["retracted"] += len(audit["retracted"])
-        tally["placed"] += len(audit["placed"])
-
-    # (b) co-locatable spread: 2 free cpus on one existing node per zone
-    def spread_cluster():
-        nodes = []
-        for zi, z in enumerate(DEFAULT_ZONES):
-            n = SimNode(
-                instance_type="m5.xlarge", provisioner="default", zone=z,
-                capacity_type="on-demand", price=0.192,
-                allocatable={"cpu": 4.0, "memory": 14.8 * GIB, "pods": 110.0},
-                existing=True, name=f"gsp{zi}")
-            n.stamp_labels()
-            n.pods.append(PodSpec(
-                name=f"gsp{zi}-fill", labels={"app": "fill"},
-                requests={"cpu": 2.0, "memory": 2.0 * GIB},
-                owner_key="fill"))
-            nodes.append(n)
-        return nodes
-
-    gang6 = [gang_member("bg-pack", i, 6) for i in range(6)]
-
-    def zones_of(res):
-        by_node = {n.name: n.zone
-                   for n in list(res.existing_nodes) + list(res.nodes)}
-        return {by_node[res.assignments[p.name]] for p in gang6
-                if p.name in res.assignments}
-
-    os.environ["KT_GANG"] = "0"
-    try:
-        naive = sched().solve(gang6, provs, catalog,
-                              existing_nodes=spread_cluster())
-    finally:
-        os.environ.pop("KT_GANG", None)
-    packed = sched().solve(gang6, provs, catalog,
-                           existing_nodes=spread_cluster())
-    spread_naive, spread_packed = len(zones_of(naive)), len(zones_of(packed))
-    packed_whole = all(p.name in packed.assignments for p in gang6)
-
-    # (c) gang-free latency, armed against KT_GANG=0: paired median of
-    # best-of-3 walls
-    free_pods = [PodSpec(name=f"gf-{d}-{i}", labels={"app": f"gfd{d}"},
-                         requests={"cpu": 0.25 * (1 + d % 3),
-                                   "memory": (0.5 + d % 4) * GIB},
-                         owner_key=f"gfd{d}")
-                 for d in range(8) for i in range(40)]
-    s = sched()
-    s.solve(free_pods, provs, catalog)  # warm
-
-    def best_wall():
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            s.solve(free_pods, provs, catalog)
-            best = min(best, (time.perf_counter() - t0) * 1000.0)
-        return best
-
-    def off_wall():
-        os.environ["KT_GANG"] = "0"
-        try:
-            return best_wall()
-        finally:
-            os.environ.pop("KT_GANG", None)
-
-    ratios = []
-    gc_was = gc.isenabled()
-    gc.disable()
-    try:
-        for k in range(GANGS["bench_pairs"]):
-            gc.collect()
-            if k % 2 == 0:
-                on_ms, off_ms = best_wall(), off_wall()
-            else:
-                off_ms = off_wall()
-                on_ms = best_wall()
-            ratios.append(on_ms / max(off_ms, 1e-9))
-    finally:
-        if gc_was:
-            gc.enable()
-    return dict(
-        gang_atomicity_violations=tally["violations"],
-        gang_retracted_untyped=tally["untyped"],
-        gang_gangs_retracted=tally["retracted"],
-        gang_gangs_placed=tally["placed"],
-        gang_spread_naive_zones=spread_naive,
-        gang_spread_packed_zones=spread_packed,
-        gang_pack_whole=packed_whole,
-        gang_latency_ratio=statistics.median(ratios),
-        gang_latency_ratios=ratios,
-        gang_latency_ratio_max=1.10)
 
 
 def gang_hier_parity(nd: int = 8, per: int = 250, n_gangs: int = 4):
@@ -2477,6 +2281,7 @@ def phase_gangs():
     """Phase 11: (a) gang-hier-100k, (b) the gang bench and the gang
     parity batch, (c) an injected and a real device hang, (d) the native
     tier.  Returns (a)'s kernel launches."""
+    import bench_torch as bt
     from karpenter_tpu_torch.models.catalog import generate_catalog
 
     t_phase = time.perf_counter()
@@ -2484,7 +2289,7 @@ def phase_gangs():
     launches, hier = gang_hier_100k()
     emit("gangs_hier_100k", **hier)
     t0 = time.perf_counter()
-    bench = gang_bench()
+    bench = bt.measure_gang(pairs=GANGS["bench_pairs"])
     check(bench["gang_atomicity_violations"] == 0
           and bench["gang_retracted_untyped"] == 0,
           "gang bench: a partial or untyped gang")
@@ -2528,79 +2333,10 @@ SERVICE = {"clients": 32, "seconds": 4.0, "max_slots": 8,
 SOLO_PLANS: list = []
 
 
-def overload_pods(client: int, n: int = 200):
-    """One overload client's batch (the reference's overload demo
-    ``admission/__main__.py`` ``_pods``, which its bench's
-    ``_overload_pods`` calls with ``n=200``)."""
-    from karpenter_tpu_torch.models.pod import PodSpec
-
-    return [
-        PodSpec(name=f"c{client}-p{i}", labels={"app": f"c{client}"},
-                requests={"cpu": 0.25 * (1 + (i + client) % 4),
-                          "memory": float(1 + (i + client) % 3) * GIB},
-                owner_key=f"c{client}")
-        for i in range(n)
-    ]
-
-
-def demo_percentile(vals, q: float) -> float:
-    """The overload demo's percentile (``admission/__main__.py``)."""
-    if not vals:
-        return 0.0
-    vals = sorted(vals)
-    return vals[min(len(vals) - 1, int(q * (len(vals) - 1) + 0.5))]
-
-
 def host_routed(registry) -> float:
     from karpenter_tpu_torch.metrics import ADMISSION_HOST_ROUTED
 
     return sum(registry.counter(ADMISSION_HOST_ROUTED).values.values())
-
-
-def closed_loop(pipe, kwargs_of, n_clients: int, seconds: float,
-                pclass=None, deadline_s=None):
-    """``n_clients`` threads each re-submitting its own request through
-    ``pipe`` until ``seconds`` pass.  Returns (served per client, the last
-    result per client, latencies s, typed sheds, wall s)."""
-    import threading
-
-    from karpenter_tpu_torch.admission import SolveShedError
-
-    counts = [0] * n_clients
-    last = [None] * n_clients
-    lat, sheds = [], []
-    errors = []
-    stop_at = time.perf_counter() + seconds
-    start = threading.Barrier(n_clients + 1)
-
-    def client(ci):
-        start.wait()
-        while time.perf_counter() < stop_at:
-            t0 = time.perf_counter()
-            try:
-                last[ci] = pipe.solve(kwargs_of(ci), pclass=pclass,
-                                      deadline_s=deadline_s)
-            except SolveShedError:
-                sheds.append(1)
-                time.sleep(0.01)  # a typed shed means back off
-                continue
-            except Exception as err:  # reported after the join
-                errors.append(repr(err))
-                return
-            lat.append(time.perf_counter() - t0)
-            counts[ci] += 1
-
-    threads = [threading.Thread(target=client, args=(ci,))
-               for ci in range(n_clients)]
-    for t in threads:
-        t.start()
-    t0 = time.perf_counter()
-    start.wait()
-    for t in threads:
-        t.join()
-    wall = time.perf_counter() - t0
-    check(not errors, f"a closed-loop client failed: {errors[:3]}")
-    return counts, last, lat, sheds, wall
 
 
 def service_pipeline(catalog) -> dict:
@@ -2609,13 +2345,14 @@ def service_pipeline(catalog) -> dict:
     pipeline (the serial baseline), then 1, 8 and 32 on an 8-slot one,
     after warming the request's shape and its slot rungs.  Every tenant's
     last served plan against its solo plan."""
+    import bench_torch as bt
     from karpenter_tpu_torch.metrics import MEGABATCH_SLOTS, Registry
     from karpenter_tpu_torch.obs.occupancy import device_busy_ms
     from karpenter_tpu_torch.service.server import SolvePipeline
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
 
     provs = [provisioner()]
-    clients = [serving_pods(c) for c in range(SERVICE["clients"])]
+    clients = [bt._serving_pods(c) for c in range(SERVICE["clients"])]
     reg = Registry()
     sched = BatchScheduler(backend="tpu", registry=reg)
     st, _ = sched._tensorize_cache.tensorize(clients[0], provs, catalog)
@@ -2645,7 +2382,7 @@ def service_pipeline(catalog) -> dict:
             occ0 = (sum(h.sums.values()), sum(h.totals.values()))
             busy0 = device_busy_ms()
             names_from(100_000)
-            counts, last, lat, _s, wall = closed_loop(
+            counts, last, lat, _s, wall = bt.closed_loop(
                 pipe, kwargs_of, concurrency, SERVICE["seconds"])
             busy = device_busy_ms() - busy0
             d_sum = sum(h.sums.values()) - occ0[0]
@@ -2684,6 +2421,7 @@ def service_overload(catalog) -> dict:
     time), then 2 critical and 8 best_effort closed-loop clients against a
     tight admission queue (best_effort depth 3, total 6).  The reference's
     brownout and breaker settings are kept."""
+    import bench_torch as bt
     from karpenter_tpu_torch.admission import (
         BEST_EFFORT,
         CRITICAL,
@@ -2691,13 +2429,16 @@ def service_overload(catalog) -> dict:
         AdmissionPolicy,
         ClassQuota,
     )
+    from karpenter_tpu_torch.admission.__main__ import (
+        _percentile as admission_percentile,
+    )
     from karpenter_tpu_torch.metrics import ADMISSION_SHED, Registry
     from karpenter_tpu_torch.service.server import SolvePipeline
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
 
     provs = [provisioner()]
     n = SERVICE["overload_pods"]
-    batches = {ci: overload_pods(ci, n)
+    batches = {ci: bt._overload_pods(ci, n)
                for ci in list(range(SERVICE["critical"]))
                + [100 + i for i in range(SERVICE["best_effort"])]}
     reg = Registry()
@@ -2712,7 +2453,7 @@ def service_overload(catalog) -> dict:
     pipe = SolvePipeline(sched, registry=reg, admission=AdmissionControl(
         policy=AdmissionPolicy(), registry=reg))
     try:
-        _c, _l, base_lat, base_sheds, _w = closed_loop(
+        _c, _l, base_lat, base_sheds, _w = bt.closed_loop(
             pipe, kwargs_of, SERVICE["critical"], SERVICE["seconds"] / 2,
             pclass=CRITICAL)
     finally:
@@ -2728,7 +2469,7 @@ def service_overload(catalog) -> dict:
     res = {}
 
     def run(pclass, ids, deadline_s):
-        res[pclass] = closed_loop(
+        res[pclass] = bt.closed_loop(
             pipe, lambda ci: kwargs_of(ids[ci]), len(ids),
             SERVICE["seconds"], pclass=pclass, deadline_s=deadline_s)
 
@@ -2755,8 +2496,8 @@ def service_overload(catalog) -> dict:
             shed_by[f"{lab['class']}/{lab['reason']}"] = d
     crit_lat, be_lat = res[CRITICAL][2], res[BEST_EFFORT][2]
     crit_sheds, be_sheds = len(res[CRITICAL][3]), len(res[BEST_EFFORT][3])
-    unloaded_p99 = demo_percentile(base_lat, 0.99) * 1e3
-    crit_p99 = demo_percentile(crit_lat, 0.99) * 1e3
+    unloaded_p99 = admission_percentile(base_lat, 0.99) * 1e3
+    crit_p99 = admission_percentile(crit_lat, 0.99) * 1e3
     check(crit_sheds == 0, f"{crit_sheds} critical requests were shed")
     check(be_sheds > 0, "no best_effort request was shed: admission "
           "never engaged")
@@ -2767,13 +2508,13 @@ def service_overload(catalog) -> dict:
         unloaded_critical_p99_ms=unloaded_p99,
         unloaded_critical_served=len(base_lat),
         unloaded_critical_sheds=len(base_sheds),
-        critical_p50_ms=demo_percentile(crit_lat, 0.5) * 1e3,
+        critical_p50_ms=admission_percentile(crit_lat, 0.5) * 1e3,
         critical_p99_ms=crit_p99,
         critical_p99_ratio=(crit_p99 / unloaded_p99) if unloaded_p99
         else None, critical_p99_budget_ratio=2.0,
         critical_served=len(crit_lat), critical_sheds=crit_sheds,
-        best_effort_p50_ms=demo_percentile(be_lat, 0.5) * 1e3,
-        best_effort_p99_ms=demo_percentile(be_lat, 0.99) * 1e3,
+        best_effort_p50_ms=admission_percentile(be_lat, 0.5) * 1e3,
+        best_effort_p99_ms=admission_percentile(be_lat, 0.99) * 1e3,
         best_effort_served=len(be_lat), best_effort_sheds=be_sheds,
         shed_by_reason=shed_by, breaker=stats["breaker"],
         brownout_level=stats["brownout_level"],
@@ -3351,6 +3092,7 @@ def operator_delta_wire() -> dict:
     import random
     import tempfile
 
+    import bench_torch as bt
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.metrics import DELTA_RPC, Registry
     from karpenter_tpu_torch.models.catalog import generate_catalog
@@ -3373,7 +3115,7 @@ def operator_delta_wire() -> dict:
     server, _ = make_server(service, host=sock)
     churn, steps = OPERATOR["delta_churn"], OPERATOR["delta_steps"]
     try:
-        pods = warmstart_pods(OPERATOR["delta_pods"], "dw")
+        pods = bt._warmstart_pods(OPERATOR["delta_pods"], "dw")
         os.environ["KT_TRACE"] = "0"
         try:
             sess = DeltaSession(sock, timeout=600.0)
@@ -3391,7 +3133,7 @@ def operator_delta_wire() -> dict:
             rm = rng.sample(live, churn)
             gone = set(rm)
             live = [n for n in live if n not in gone]
-            add = warmstart_pods(churn, f"dwc{k}")
+            add = bt._warmstart_pods(churn, f"dwc{k}")
             t0 = time.perf_counter()
             cur = sess.solve_delta(added=add, removed=rm)
             times.append((time.perf_counter() - t0) * 1000.0)
@@ -3472,7 +3214,11 @@ def phase_operator(st, limit, slice_res):
 
 #: phase 14's sizes: (b)'s serving requests and sweep candidates, (c)'s
 #: ranks and megabatch slots
-MESH = {"virtual": 8, "serving": 8, "sweep": 16, "ranks": 2, "slots": 8}
+MESH = {"virtual": 8, "serving": 8, "sweep": 16, "ranks": 2,
+        "rank_devices": 4, "slots": 8}
+#: 14(c)'s ``MHOST`` verdict (the dryrun's ``summary``), which 16(c)'s
+#: ``measure_multihost_fence`` reads instead of running the ranks again
+MHOST: dict = {}
 
 
 def _free_port() -> int:
@@ -3576,6 +3322,7 @@ def mesh_virtual_8():
     unmeshed path on ``cuda``: the sharded single solve of the 64-pod and
     the 10,000-pod scenarios, 8 serving requests in one sharded flush, the
     16-candidate sweep."""
+    import bench_torch as bt
     from karpenter_tpu_torch.metrics import (
         MEGABATCH_FLUSH,
         MEGABATCH_SLOTS,
@@ -3620,7 +3367,7 @@ def mesh_virtual_8():
     # 8 serving requests in one sharded flush
     small = generate_catalog(full=False)
     provs = [provisioner()]
-    clients = [serving_pods(c) for c in range(MESH["serving"])]
+    clients = [bt._serving_pods(c) for c in range(MESH["serving"])]
     solo_sched = BatchScheduler(backend="auto")
     solos = []
     for pods in clients:
@@ -3654,7 +3401,7 @@ def mesh_virtual_8():
                                 flush_ms=flush_ms, plans_equal=sum(equal))
 
     # the 16-candidate sweep of phase 8 on the meshed scheduler
-    cluster = sweep_cluster()
+    cluster = bt._sweep_cluster()
     cands = [[i] for i in range(MESH["sweep"])]
 
     def sweep(on):
@@ -3677,18 +3424,22 @@ def mesh_virtual_8():
 
 
 def mesh_two_processes():
-    """(c): two ranks on the card over gloo (``launch_workers`` running
+    """(c): two ranks on the card over gloo, four mesh entries each (the
+    bench's ``measure_multihost_fence`` layout; ``launch_workers`` running
     ``scripts/dryrun_multihost_torch.py``): each asserts the host-major
     layout on the real ranks, serves one 8-slot megabatch SPMD (owned
     range = ``slot_hosts``, half the fence bytes, foreign slots typed with
     their owner, owned plans equal to serial solves), and rank 0 forwards
     one foreign slot to its owner's ``SolverService`` over gRPC
-    (``KT_MULTIHOST_PEERS``)."""
-    from scripts.dryrun_multihost_torch import run
+    (``KT_MULTIHOST_PEERS``).  The launcher's verdict is kept in
+    :data:`MHOST` for 16(c)."""
+    from scripts.dryrun_multihost_torch import run, summary
 
     t0 = time.perf_counter()
-    recs = run(MESH["ranks"], 1, device="cuda:0", timeout=400)
+    recs = run(MESH["ranks"], MESH["rank_devices"], device="cuda:0",
+               timeout=400)
     wall_s = time.perf_counter() - t0
+    MHOST.update(summary(recs, MESH["ranks"], MESH["rank_devices"]))
     check(all(r["ok"] and r["backend"] == "gloo" for r in recs),
           "a rank failed or did not run on gloo")
     check(all(r["read"] * MESH["ranks"] == r["total"] for r in recs),
@@ -3697,7 +3448,10 @@ def mesh_two_processes():
           "the megabatch was not padded to its 8 slots")
     fwd = [r["forward"] for r in recs if r["forward"]["forwarded"]]
     check(len(fwd) == 1, "no foreign slot was forwarded")
-    return dict(ranks=recs, forwarded=fwd[0], wall_s=wall_s)
+    check(MHOST["parity"], "a rank's megabatch slot diverged from its "
+          "serial solve")
+    return dict(ranks=recs, forwarded=fwd[0], summary=dict(MHOST),
+                wall_s=wall_s)
 
 
 def phase_mesh(limit, slice_stats, slice_res, slice_wall_ms):
@@ -3795,6 +3549,7 @@ def analysis_sanitized(full, limit, slice_stats, slice_res):
 
     import grpc
 
+    import bench_torch as bt
     from karpenter_tpu_torch import kernels, metrics
     from karpenter_tpu_torch.analysis import sanitize
     from karpenter_tpu_torch.metrics import FLIGHT_DUMPS, HIER_SOLVES, Registry
@@ -3822,7 +3577,7 @@ def analysis_sanitized(full, limit, slice_stats, slice_res):
     sanitize.install()
     small = generate_catalog(full=False)
     provs = [provisioner()]
-    clients = [serving_pods(c) for c in range(SERVICE["clients"])]
+    clients = [bt._serving_pods(c) for c in range(SERVICE["clients"])]
     reg = Registry()
     tracer = Tracer(registry=reg, flight=FlightRecorder(
         registry=reg, slow_trace_s=SERVICE["wire_trace_budget_s"]))
@@ -3856,7 +3611,7 @@ def analysis_sanitized(full, limit, slice_stats, slice_res):
                                  admission=False)
             try:
                 names_from(100_000)
-                counts, last, lat, _s, wall = closed_loop(
+                counts, last, lat, _s, wall = bt.closed_loop(
                     pipe, kwargs_of, c, ANALYSIS["seconds"])
             finally:
                 pipe.stop()
@@ -3989,6 +3744,7 @@ def reestablished_session() -> dict:
     re-established under the same session id and driven again."""
     import tempfile
 
+    import bench_torch as bt
     from karpenter_tpu_torch.metrics import DELTA_RPC, Registry
     from karpenter_tpu_torch.models.catalog import generate_catalog
     from karpenter_tpu_torch.service.client import DeltaSession
@@ -4007,12 +3763,12 @@ def reestablished_session() -> dict:
         for rnd in range(2):
             sess = DeltaSession(sock, session_id="reestablished",
                                 timeout=600.0)
-            pods = warmstart_pods(ANALYSIS["second_pods"], f"re{rnd}")
+            pods = bt._warmstart_pods(ANALYSIS["second_pods"], f"re{rnd}")
             sess.solve(pods, provs, catalog)
             live = [p.name for p in pods]
             for k in range(ANALYSIS["second_steps"]):
                 rm, live = live[:8], live[8:]
-                add = warmstart_pods(8, f"re{rnd}c{k}")
+                add = bt._warmstart_pods(8, f"re{rnd}c{k}")
                 sess.solve_delta(added=add, removed=rm)
                 live += [p.name for p in add]
             out.append(dict(epoch=sess.epoch,
@@ -4123,11 +3879,63 @@ def bench_cli() -> dict:
     return dict(configs=lines, wall_s=time.perf_counter() - t0)
 
 
+#: 16(c): the bench's probes whose paths no earlier phase drives, run in
+#: process at the bench's sizes
+BENCH_PROBES = ("measure_warm_coldstart", "measure_multihost_fence",
+                "measure_replay_fidelity", "measure_tuning")
+
+
+def bench_probes() -> dict:
+    """16(c): the :data:`BENCH_PROBES` of ``bench_torch`` on the card, at
+    the bench's sizes.  ``measure_multihost_fence`` reads 14(c)'s rank run
+    (:data:`MHOST`, the bench's layout) and drives only its lone-request
+    A/B.  Kernel counts are zeroed just before and read just after, the
+    children's (each warm cold start process, each rank, each A/B run)
+    added from the counts they print; no hand-written kernel is on these
+    paths.  The budget flags ``check_budgets`` raises on the fragments
+    are returned, not failed on; a probe that raises fails the phase."""
+    import bench_torch
+    from karpenter_tpu_torch import kernels
+
+    check(bool(MHOST), "14(c) left no MHOST verdict")
+    rec, walls, children = {}, {}, {}
+    kwargs = {"measure_warm_coldstart": dict(launches=children),
+              "measure_multihost_fence": dict(
+                  n_processes=MESH["ranks"],
+                  local_devices=MESH["rank_devices"], summary=MHOST,
+                  launches=children)}
+    kernels.reset_counts()
+    for name in BENCH_PROBES:
+        t0 = time.perf_counter()
+        rec.update(getattr(bench_torch, name)(**kwargs.get(name, {})))
+        walls[name] = time.perf_counter() - t0
+    launches = kernels.counts()
+    check(set(children) == set(launches),
+          f"the children counted {sorted(children)}, not every kernel")
+    check(rec["cold_first_solve_warm_served_cold"] is False,
+          "the warmed first serving solve was served cold")
+    check(rec["multihost_parity"] is True,
+          "a rank's megabatch slot diverged from its serial solve")
+    check(rec["replay_errors"] == 0 and rec["replay_class_mix_match"] is True,
+          f"replay: {rec['replay_errors']} errors, class mix "
+          f"{rec['replay_class_mix_match']}")
+    check(rec["tuning_replay_errors"] == 0,
+          f"{rec['tuning_replay_errors']} replayed requests errored in the "
+          "tuning runs")
+    check(not any(launches.values()) and not any(children.values()),
+          f"a hand-written kernel launched on a bench probe's path: "
+          f"{launches} in process, {children} in the children")
+    return dict(rec, probe_s=walls, launches=launches,
+                child_launches=children,
+                budget_flags=bench_torch.check_budgets(rec).get(
+                    "budget_flags", []))
+
+
 def phase_bench():
     """Phase 16: (a) ``cli bench --configs 2,6`` in a subprocess, (b) the
     headline's tensorize tiers and ``bench_torch.measure_hierarchical`` in
-    process, kernel counts zeroed just before (b) and read just after.
-    Returns (b)'s kernel launches."""
+    process, kernel counts zeroed just before (b) and read just after,
+    (c) :func:`bench_probes`.  Returns (b)'s kernel launches."""
     import bench_torch
     from karpenter_tpu_torch import kernels
 
@@ -4156,6 +3964,9 @@ def phase_bench():
          hier_s=hier_s,
          budget_flags=bench_torch.check_budgets(rec).get("budget_flags", []),
          phase_s=time.perf_counter() - t_phase)
+    t0 = time.perf_counter()
+    emit("bench_probes", **bench_probes(), wall_s=time.perf_counter() - t0,
+         phase_s=time.perf_counter() - t_phase)
     guard_clean("bench")
     return launches
 
@@ -4179,6 +3990,7 @@ def main() -> int:
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.models.catalog import generate_catalog
 
+    t_start = time.perf_counter()
     logging.getLogger("karpenter_tpu_torch").addHandler(FAULTS)
     install_guard_watch()
 
@@ -4233,6 +4045,7 @@ def main() -> int:
         ("packed_score", kernels.PACKED_SCORE, "packed"),
         ("price_step_score", kernels.PRICE_STEP_SCORE, "step"))]}
     RECORD["kernels"] = table["kernels"]
+    RECORD["wall_s"] = time.perf_counter() - t_start
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

@@ -155,3 +155,8 @@ def libraries(kernels: Sequence[Kernel] = ()) -> List[Library]:
 def reset_counts() -> None:
     for k in ALL:
         k.launches = 0
+
+
+def counts() -> Dict[str, int]:
+    """Every kernel entry's launch count, by name."""
+    return {k.name: k.launches for k in ALL}

@@ -15,7 +15,8 @@ trip) with this script's work on top:
 - **addressable-only fences**: each rank reads back EXACTLY 1/N of the
   whole-batch bytes;
 - **demux**: foreign slots resolve to ``SlotNotOwned`` naming the true
-  owner; owned plans equal single-process serial solves;
+  owner; owned plans equal single-process serial solves (``parity``);
+- **flush wall**: the steady sharded flush, median of 3 (``flush_ms``);
 - **forwarding**: every rank serves a ``SolverService`` on a unix socket
   (``KT_MULTIHOST_PEERS``), rank 0 forwards one foreign slot through
   ``ResultForwarder`` and gets the plan its owner serves itself.
@@ -26,9 +27,18 @@ tensors.
 
     python scripts/dryrun_multihost_torch.py --device cpu
     python scripts/dryrun_multihost_torch.py --device cuda:0 --local-devices 1
+    python scripts/dryrun_multihost_torch.py --lone-ab [--device cpu]
 
-Machine-readable verdicts: one ``MHOSTW {...}`` JSON line per rank and one
-``MHOST {...}`` summary from the launcher.
+``--lone-ab`` is one process: a lone 1-request flush over 8 virtual
+shards of the device, read back through the per-host fence
+(``KT_MULTIHOST=1``) and through the whole-batch readback (``=0``) in
+alternating pairs.
+
+Machine-readable verdicts: one ``MHOSTW {...}`` JSON line per rank, one
+``MHOST {...}`` summary from the launcher (``slots``, ``fence_frac``,
+``flush_ms``, ``parity``, the ranks' kernel ``launches``), one
+``LONE_AB {"on_ms", "off_ms", "ratio"}`` and one ``LAUNCHES {...}`` (its
+kernel launches) from ``--lone-ab``.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import json
 import os
 import sys
 import tempfile
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -224,18 +235,31 @@ def _megabatch(mesh, device, n_slots: int) -> dict:
             assert isinstance(out, SlotNotOwned), (i, out)
             assert out.owner == owners[i], (i, out.owner, owners[i])
             n_foreign += 1
+    diverged = []
     for i in range(lo, hi):
         names_from(1000 + 1000 * (i + 1))
         solo = solver.solve(sts[i]).result
         out = outs[i].result
-        assert plan_of(out) == plan_of(solo), (
-            f"slot {i} diverged from the single-process serial solve")
-        assert set(out.assignments) == set(solo.assignments), i
-        assert out.infeasible == solo.infeasible, i
+        if (plan_of(out) != plan_of(solo)
+                or set(out.assignments) != set(solo.assignments)
+                or out.infeasible != solo.infeasible):
+            diverged.append(i)
+    parity = not diverged
+    assert parity, (
+        f"slots {diverged} diverged from the single-process serial solve")
+    # the steady flush wall (median of 3): dispatch + per-host fence; every
+    # rank runs the identical dispatch
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solver.solve_many_async([dict(st=st) for st in sts],
+                                min_slots=n_slots, mesh=mesh).results()
+        walls.append((time.perf_counter() - t0) * 1000.0)
     return dict(owned=[lo, hi], slots=int(handle.B_pad), foreign=n_foreign,
                 read=int(handle.fence_bytes_read),
                 total=int(handle.fence_bytes_total),
                 frac=handle.fence_bytes_read / max(1, handle.fence_bytes_total),
+                parity=parity, flush_ms=sorted(walls)[1],
                 owners=list(owners), parts=parts)
 
 
@@ -316,19 +340,76 @@ def _forward(device, mb: dict, coordinator: str) -> dict:
 
 
 def work(mesh, device, args) -> dict:
-    """The dryrun on top of ``worker_main``'s layout checks."""
+    """The dryrun on top of ``worker_main``'s layout checks, with the
+    rank's hand-written kernel launches over it (``launches``)."""
+    from karpenter_tpu_torch import kernels
+
+    kernels.reset_counts()
     rec = _sharded_solve(mesh, device)
     mb = _megabatch(mesh, device, MEGABATCH_SLOTS)
     fwd = (_forward(device, mb, args.coordinator)
            if args.num_processes > 1 else None)
     rec.update({k: v for k, v in mb.items() if k not in ("parts", "owners")})
     rec["forward"] = fwd
+    rec["launches"] = kernels.counts()
     return rec
 
 
 # ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------
+
+
+def lone_ab(devices: int = 8, pairs: int = 5, device=None) -> dict:
+    """One process, ``devices`` virtual shards of ``device`` (the card by
+    default, raising without one): a lone 1-request meshed flush read back
+    through the per-host fence (``KT_MULTIHOST=1``) against the
+    whole-batch readback (``=0``), in pairs of alternating order; the
+    medians and their ratio (the lone-request tax gate's input).  The
+    kernel launches of the run are left in ``kernels``' counts."""
+    from karpenter_tpu_torch.device import resolve_device
+    from karpenter_tpu_torch.models.tensorize import tensorize
+    from karpenter_tpu_torch.parallel.mesh import make_mesh
+    from karpenter_tpu_torch.solver.tpu import TpuSolver
+
+    from karpenter_tpu_torch import kernels
+
+    kernels.reset_counts()
+    dev = resolve_device(device)
+    mesh = make_mesh(devices=[dev] * devices)
+    pods, provs, catalog = scenario_parts(48, tenant="mh0")
+    st = tensorize(pods, provs, catalog)
+    solver = TpuSolver(device=dev)
+    solver.solve_many([dict(st=st)], mesh=mesh)  # first run of the shape
+    prev = os.environ.get("KT_MULTIHOST")
+
+    def flush(flag: str) -> float:
+        os.environ["KT_MULTIHOST"] = flag
+        t0 = time.perf_counter()
+        solver.solve_many_async([dict(st=st)], mesh=mesh).results()
+        return (time.perf_counter() - t0) * 1000.0
+
+    try:
+        flush("1"), flush("0")  # both readback paths once, off the record
+        on, off = [], []
+        for k in range(pairs):
+            # alternating within-pair order: a monotone host drift biases
+            # half the pairs each way
+            if k % 2 == 0:
+                on.append(flush("1"))
+                off.append(flush("0"))
+            else:
+                off.append(flush("0"))
+                on.append(flush("1"))
+    finally:
+        if prev is None:
+            os.environ.pop("KT_MULTIHOST", None)
+        else:
+            os.environ["KT_MULTIHOST"] = prev
+    on_ms = sorted(on)[len(on) // 2]
+    off_ms = sorted(off)[len(off) // 2]
+    return dict(on_ms=round(on_ms, 2), off_ms=round(off_ms, 2),
+                ratio=round(on_ms / max(off_ms, 1e-9), 3))
 
 
 def run(n_processes: int = 2, local_devices: int = 2, device=None,
@@ -349,6 +430,25 @@ def run(n_processes: int = 2, local_devices: int = 2, device=None,
     return records
 
 
+def summary(records: list, processes: int, local_devices: int) -> dict:
+    """The launcher's ``MHOST`` verdict over the ranks' records: the
+    worst fence fraction and flush wall, parity on every rank, the
+    forwards, and the ranks' kernel launches summed."""
+    launches: dict = {}
+    for r in records:
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return dict(
+        processes=processes, local_devices=local_devices,
+        slots=records[0]["slots"],
+        fence_frac=max(r["frac"] for r in records),
+        flush_ms=max(r["flush_ms"] for r in records),
+        parity=all(r["parity"] for r in records),
+        forwarded=sum(1 for r in records
+                      if r["forward"] and r["forward"]["forwarded"]),
+        launches=launches)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--worker" in argv:
@@ -362,15 +462,26 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="every rank's device (default: the card)")
     ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--lone-ab", action="store_true",
+                    help="one process: the per-host fence against the "
+                         "whole-batch readback on a lone meshed flush")
+    ap.add_argument("--devices", type=int, default=8,
+                    help="virtual shards of --device for --lone-ab")
+    ap.add_argument("--pairs", type=int, default=5,
+                    help="timed (on, off) pairs for --lone-ab")
     args = ap.parse_args(argv)
+    if args.lone_ab:
+        from karpenter_tpu_torch import kernels
+
+        print("LONE_AB " + json.dumps(lone_ab(args.devices, args.pairs,
+                                              device=args.device)),
+              flush=True)
+        print("LAUNCHES " + json.dumps(kernels.counts()), flush=True)
+        return 0
     records = run(args.processes, args.local_devices, args.device,
                   args.timeout)
-    print("MHOST " + json.dumps(dict(
-        processes=args.processes, local_devices=args.local_devices,
-        fence_frac=max(r["frac"] for r in records),
-        forwarded=sum(1 for r in records
-                      if r["forward"] and r["forward"]["forwarded"]))),
-        flush=True)
+    print("MHOST " + json.dumps(summary(records, args.processes,
+                                        args.local_devices)), flush=True)
     return 0
 
 

@@ -22,7 +22,9 @@ recovers, and a gang-bearing hierarchical batch plans the same on ``cuda``
 as on ``cpu``.  The sidecar (``SolverService`` behind ``make_server``)
 answers a serving request over gRPC with the plan of a direct ``cuda``
 solve, and an ``Operator`` dialing it provisions what an in-process
-operator on the card provisions.
+operator on the card provisions.  The bench's consolidation-sweep probe
+(``bench_torch.measure_consolidation_sweep``) makes the serial loop's
+decisions in one batched dispatch on the card.
 """
 
 import numpy as np
@@ -166,13 +168,14 @@ def test_hierarchical_solve_cuda_matches_cpu(cuda, monkeypatch):
 def _relax_inputs(n_per, spread_deps=0):
     """The relax program's inputs for a port-built batch (the scan and the
     partition on the host)."""
+    import bench_torch as bt
     import chip_smoke as cs
     from karpenter_tpu_torch.models.catalog import generate_catalog
     from karpenter_tpu_torch.models.tensorize import tensorize
     from karpenter_tpu_torch.solver import relax
     from karpenter_tpu_torch.solver.tpu import TpuSolver
 
-    pods = cs.relax_pods(n_per, spread_deps=spread_deps)
+    pods = bt._relax_pods(n_per, spread_deps=spread_deps)
     st = tensorize(pods, [cs.provisioner()], generate_catalog(full=True))
     res = TpuSolver(device="cpu").solve(st).result
     _elig, freed, lifted, seats = relax.eligible_partition(st, res)
@@ -249,13 +252,14 @@ def test_repack_controllers_cuda_equals_cpu(cuda):
 def test_serving_flush_cuda_equals_cpu(cuda):
     """A flush of 8 serving requests (chip_smoke phase 10's requests): the
     same plans on ``cuda`` as on ``cpu``, none served cold."""
+    import bench_torch as bt
     import chip_smoke as cs
     from karpenter_tpu_torch.models.catalog import generate_catalog
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
 
     catalog = generate_catalog(full=False)
     provs = [cs.provisioner()]
-    clients = [cs.serving_pods(c) for c in range(8)]
+    clients = [bt._serving_pods(c) for c in range(8)]
     runs = {}
     for dev in ("cuda", "cpu"):
         sched = BatchScheduler(backend="auto", device=dev)
@@ -283,6 +287,7 @@ def test_constrained_delta_chain_cuda_equals_cpu(cuda):
 def test_submit_on_cuda_never_served_cold(cuda):
     """``submit`` on a ``cuda`` scheduler serves a first-seen signature on
     the card: no result is served cold and no cold fallback is counted."""
+    import bench_torch as bt
     import chip_smoke as cs
     from karpenter_tpu_torch.metrics import SOLVER_COLD_FALLBACKS, Registry
     from karpenter_tpu_torch.models.catalog import generate_catalog
@@ -292,7 +297,7 @@ def test_submit_on_cuda_never_served_cold(cuda):
     reg = Registry()
     sched = BatchScheduler(backend="auto", registry=reg)
     for c in range(3):
-        pods = cs.serving_pods(c, n_groups=4 + 2 * c)
+        pods = bt._serving_pods(c, n_groups=4 + 2 * c)
         res = sched.submit(pods, [cs.provisioner()], catalog).result()
         assert not res.served_cold and not res.infeasible
     assert sum(reg.counter(SOLVER_COLD_FALLBACKS).values.values()) == 0
@@ -336,6 +341,7 @@ def test_solver_service_round_trip_on_cuda(cuda, tmp_path):
     ``cuda`` solve gives; ``Health`` reports the card."""
     import grpc
 
+    import bench_torch as bt
     import chip_smoke as cs
     from karpenter_tpu_torch.models.catalog import generate_catalog
     from karpenter_tpu_torch.service import codec
@@ -348,7 +354,7 @@ def test_solver_service_round_trip_on_cuda(cuda, tmp_path):
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
 
     catalog = generate_catalog(full=False)
-    pods = cs.serving_pods(0)
+    pods = bt._serving_pods(0)
     service = SolverService()
     assert service.scheduler.device.type == "cuda"
     address = f"unix:{tmp_path}/solver.sock"
@@ -385,6 +391,7 @@ def test_remote_operator_round_trip_against_a_cuda_sidecar(cuda, tmp_path):
     ``RemoteScheduler`` dials a ``SolverService`` on the card provisions
     a zone-spread batch with the plan an in-process operator on the card
     makes, with no local fallback solve."""
+    import bench_torch as bt
     import chip_smoke as cs
     from karpenter_tpu_torch.cloud.fake import FakeCloudProvider
     from karpenter_tpu_torch.metrics import REMOTE_FALLBACK_SOLVES, Registry
@@ -395,7 +402,7 @@ def test_remote_operator_round_trip_against_a_cuda_sidecar(cuda, tmp_path):
     from karpenter_tpu_torch.utils.clock import FakeClock
 
     catalog = generate_catalog(full=False)
-    pods = cs.serving_pods(0)
+    pods = bt._serving_pods(0)
     service = SolverService(BatchScheduler(backend="tpu"))
     assert service.scheduler.device.type == "cuda"
     address = f"unix:{tmp_path}/solver.sock"
@@ -474,3 +481,16 @@ def test_make_mesh_past_the_cards_raises(cuda):
     assert make_mesh(n).size == n
     with pytest.raises(RuntimeError, match="never falls back"):
         make_mesh(n + 1)
+
+
+def test_bench_sweep_probe_on_cuda(cuda):
+    """``bench_torch.measure_consolidation_sweep`` on the card at a small
+    size: the batched sweep is one dispatch and its decisions equal the
+    serial what-if loop's."""
+    import bench_torch as bt
+
+    rec = bt.measure_consolidation_sweep(4, n_nodes=40, pairs=1, device=cuda)
+    assert rec["sweep_decisions_match"] is True
+    assert rec["sweep_path"] == "batched" and rec["sweep_dispatches"] == 1
+    assert not any("diverged" in f for f in
+                   bt.check_budgets(rec).get("budget_flags", []))

@@ -102,7 +102,7 @@ def test_every_module_is_probed():
                  "analysis.ktlint", "analysis.callgraph", "analysis.model",
                  "analysis.conformance", "analysis.sanitize",
                  "analysis.rules", "analysis.rules.kt001",
-                 "analysis.rules.kt025"):
+                 "analysis.rules.kt025", "solver.validate"):
         assert f"karpenter_tpu_torch.{name}" in MODULES
     assert len(MODULES) >= 120
 

@@ -399,11 +399,12 @@ def test_spread_remainder_behind_an_open_row_matches_oracle(n_warm, n_spread):
     took the unit), so the reference's scan leaves one pod unplaced where
     the oracle seats every pod.  The port's scan seats them all, as the
     oracle does, within the spread's skew."""
+    import bench_torch as bt
     import chip_smoke as cs
     from karpenter_tpu_torch.solver import reference as t_reference
 
     catalog = t_catalog.generate_catalog(full=False)
-    pods = (cs.warmstart_pods(n_warm, "cs")
+    pods = (bt._warmstart_pods(n_warm, "cs")
             + cs.spread_deployment("sp0", n_spread))
     provs = [cs.provisioner()]
     oracle = t_reference.solve(pods, provs, catalog)
