@@ -54,18 +54,18 @@ no result):
    every single and structured subset on the card), one full
    deprovisioning reconcile at 100 nodes (the screen on the card, a
    proposed action executed, the fleet settled, a warm reconcile), and
-   the ladder driven to convergence at 100 nodes (no pod pending, every
+   the ladder driven to convergence at 40 nodes (no pod pending, every
    pod bound once, no node over its allocatable, a lower cost); (c) a
-   100-node fleet driven to convergence on ``cuda`` (that is (b)'s run)
+   40-node fleet driven to convergence on ``cuda`` (that is (b)'s run)
    and on ``cpu``: equal actions, final cluster and bindings.  The sizes are cut from the
    reference bench's 5,000 and 2,000 nodes to fit the time
    (:data:`REPACK_SIZES`);
 10. serving — (a) the reference bench's 32 serving requests (320 pods in 8
     zone-spread groups each, small catalog) through
     ``BatchScheduler(backend="auto").submit_many`` in flushes of 1, 8 and
-    32 against the 32 solved one by one (the serial baseline): every
-    flushed plan equal to its solo plan node for node, the 32-flush on
-    ``cpu`` equal or ``placements_tie``, ``MEGABATCH_SLOTS`` at 1, 8 and
+    32 against the first 8 solved one by one (the serial baseline): every
+    flushed plan of those equal to its solo plan node for node, the
+    32-flush on ``cpu`` equal or ``placements_tie``, ``MEGABATCH_SLOTS`` at 1, 8 and
     32, no cold fallback; an 8-flush's launches and host syncs (enqueue
     and read-back); (b) the slice's 100,000-pod batch under the slice's
     limit in one flush beside 7 serving requests: hierarchical routing,
@@ -73,7 +73,7 @@ no result):
     plan, the serving plans equal to their solo plans; (c) the bench's
     ``measure_warmstart`` chain (20,000 unconstrained pods, 40 steps of 8
     removals and 8 adds through ``TpuSolver.solve_delta``): step p50/p99,
-    modes, fallbacks, the final cost within 1.02 of a fresh solve; (d) 20
+    modes, fallbacks, the final cost within 1.02 of a fresh solve; (d) 10
     ``BatchScheduler.solve_delta`` steps on the device backend from the
     same base, each adding one zone-spread deployment (the scan tier), on
     ``cuda`` and on ``cpu``: the same modes and final cluster;
@@ -85,7 +85,7 @@ no result):
     iteration, the limit held, every gang all or none with the typed
     reason, both doomed gangs retracted; (b) ``bench_torch.measure_gang``
     on ``cuda`` (atomicity in 4 variants, co-location packing against
-    ``KT_GANG=0``, the gang-free latency ratio over 3 pairs), and a
+    ``KT_GANG=0``, the gang-free latency ratio over 1 pair), and a
     gang-bearing hierarchical batch on ``cuda`` and ``cpu`` (equal plans);
     (c) ``device_hang@fence`` injected into a fresh ``auto`` scheduler
     (the batch served by a host tier, one hang counted, the probe
@@ -96,10 +96,10 @@ no result):
     ``auto`` backend through ``ProvisioningController``;
 12. service — the solver sidecar: (a) the reference bench's
     ``measure_throughput`` through ``SolvePipeline`` on ``backend="tpu"``
-    (32 clients of 320 pods, 4 s at concurrency 1 on a 1-slot pipeline,
+    (32 clients of 320 pods, 2 s at concurrency 1 on a 1-slot pipeline,
     then 1, 8 and 32 on an 8-slot one): solves/s, slot occupancy, the
     lone-request latency ratio, the device busy share by CUDA events,
-    every tenant's plan equal to its solo plan, c32 above c1; (b) the
+    every tenant's plan equal to 10(a)'s, c32 above c1; (b) the
     bench's ``measure_overload``: 2 ``critical`` and 8 ``best_effort``
     closed-loop clients of 200 pods against a tight admission queue, with
     its unloaded critical baseline: no critical shed, some best_effort
@@ -123,7 +123,7 @@ no result):
     sidecar's ``/metrics``, ``/statusz``, ``/tracez`` and ``/sloz``
     answering, and the operator's ``/fleetz`` merging the sidecar; (b)
     ``cli serve --backend tpu --obs-port`` as a subprocess on the card,
-    ``cli demo --pods 500 --backend tpu --solver-address`` against it with
+    ``cli demo --pods 200 --backend tpu --solver-address`` against it with
     ``CUDA_VISIBLE_DEVICES=""`` and the same demo in-process on the card:
     equal scale-up lines, both scale-downs with ``pending=0`` and savings,
     no remote fallback, both exit 0, the sidecar draining on SIGTERM; (c)
@@ -169,7 +169,7 @@ no result):
     ``sanitizer_error`` flight dumps, every observed lock nesting in
     ``LOCK_ORDER``'s order, phase 4's plan node for node, one
     ``price_step_scores`` launch per price iteration, the clients' plans
-    equal to their solo plans; then ``uninstall()``; (d) under the port's
+    equal to 10(a)'s; then ``uninstall()``; (d) under the port's
     transition tap (``obs.protocol.recording()``), 13(c)'s wire delta
     chain and a second session closed and re-established: every session's
     event sequence a path of the model-checked automaton
@@ -197,12 +197,29 @@ no result):
     fence fraction and the A/B ratio printed), ``measure_replay_fidelity``
     (a seeded bursty capture replayed through an oracle replica over gRPC;
     no replay error, the class mix intact) and ``measure_tuning`` (the
-    static / learn / judged replays of three captures; no replay error);
+    static / learn / judged replays of three captures, one pair; no
+    replay error);
     no hand-written kernel launches there, in process or in the child
     processes (each prints its own counts, zeroed before its work: the
     warm cold start processes, 14(c)'s ranks, the A/B runs); the budget
     flags are printed, not failed on, and a probe that raises fails the
-    run.
+    run;
+17. resilience — ``scripts/chaos_drive_torch.py`` on the card
+    (``backend="tpu"``): (a) ``run_chaos`` at 20 of its 60 steps and its
+    1,500 pods: the composed 8-kind ``KT_FAULTS`` schedule against a
+    fault-free mirror, the four invariants (no silent divergence, mirror
+    parity as a node partition, typed errors only, bounded recovery)
+    asserted at every step, the faults injected by rule, re-establishes
+    and parity-checked steps printed; (b) ``run_restart(snapshot=True)``
+    at 1,000 pods over 4 clients: the sidecar subprocess on the card SIGTERM'd mid-chain and relaunched
+    on the card, 0 re-establishes, the restart wall, the relaunch's wait
+    for health and the first post-restart delta times; (c)
+    ``run_fleet(mode="kill")``: three replicas and the mirror on the card,
+    one hard-killed, at least one orphaned session, 0 re-establishes,
+    steal adoptions >= orphans, the typed errors and one dead-endpoint
+    warning per orphaned client.  Each prints the thread count at its
+    start and end; no hand-written kernel launches, in process or in
+    either sidecar (each prints its counts at shutdown).
 
 After every phase but 11(c) and 12(d) the run checks that no device hang
 was counted, no solve was served degraded or host-routed by admission,
@@ -212,8 +229,8 @@ line).  Launch counts (the
 hand-written kernels', and the relax and screen programs' runs) are
 zeroed just before each path is driven and read just after; no
 hand-written kernel is on the relax, consolidation, repack,
-serving-request or delta path or 16(c)'s, so their kernel counts read 0
-there (the
+serving-request or delta path or 16(c)'s or 17's, so their kernel counts
+read 0 there (the
 kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s, 14(a)'s,
 15(c)'s and 16(b)'s launches to the slice's; 16(b)'s one
 ``packed_scan_scores`` launch is the bench's own kernel-parity check).
@@ -234,6 +251,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1287,11 +1305,11 @@ def phase_consolidation():
 #: what-if over 240 of 300 nodes), so a full evaluation at 5,000 nodes
 #: does not fit this script's time: the screen step runs at 5,000, the
 #: rest at these sizes, cut again (from 300 and 200) when phase 11 came in,
-#: the convergence again (from 150) when phase 12 came in, and the one
-#: full reconcile again (from 200) when phase 16(c) came in (PERF.md §4);
-#: (c)'s cuda-vs-cpu parity runs at the convergence's size, its cuda run
-#: being (b)'s
-REPACK_SIZES = {"screen": 5000, "reconcile": 100, "converge": 100}
+#: the convergence again (from 150) when phase 12 came in and (from 100,
+#: then 60) when phase 17 did, and the one full reconcile again (from 200) when
+#: phase 16(c) came in (PERF.md §4); (c)'s cuda-vs-cpu parity runs at the
+#: convergence's size, its cuda run being (b)'s
+REPACK_SIZES = {"screen": 5000, "reconcile": 100, "converge": 40}
 
 
 def provision_through_controller(catalog, limit, pods):
@@ -1488,9 +1506,12 @@ def phase_controllers(slice_limit, slice_res, pods):
 
 #: phase 10's sizes: the reference bench's widths (``measure_throughput``'s
 #: 32 clients x 320 pods, ``measure_warmstart``'s 20,000 pods, churn 8, 40
-#: steps); the constrained chain's step count is this script's choice
-SERVING = {"clients": 32, "flushes": (1, 8, 32), "ws_pods": 20_000,
-           "churn": 8, "ws_steps": 40, "spread_steps": 20}
+#: steps); the constrained chain's step count is this script's choice (20,
+#: cut to 10 when phase 17 came in); the serial baseline solves the first
+#: ``serial`` requests alone (all 32, cut to 8 when phase 17 came in: each
+#: takes about 1 s on the card)
+SERVING = {"clients": 32, "flushes": (1, 8, 32), "serial": 8,
+           "ws_pods": 20_000, "churn": 8, "ws_steps": 40, "spread_steps": 10}
 
 
 def spread_deployment(tag: str, n: int):
@@ -1586,8 +1607,11 @@ def sync_calibration() -> int:
 
 def serving_megabatch(catalog):
     """(a): flushes of 1, 8 and 32 serving requests against the serial
-    baseline; every flushed plan against its solo plan; the 32-flush on
-    ``cpu``; one flush's launches and host syncs."""
+    baseline of the first ``SERVING["serial"]`` requests; every flushed
+    plan of those against its solo plan; the 32-flush on ``cpu``; one
+    flush's launches and host syncs.  The reference plans returned are the
+    solo plans, then the 32-flush's (held to the ``cpu`` flush) for the
+    requests past the serial ones."""
     import bench_torch as bt
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.metrics import (
@@ -1616,7 +1640,7 @@ def serving_megabatch(catalog):
     # the serial baseline: each request alone through solve (the rung skips
     # zone-spread batches; relax=False keeps it the flush's path)
     solo, serial_ms = [], []
-    for pods in clients:
+    for pods in clients[:SERVING["serial"]]:
         names_from()
         res, ms = _synced_ms(lambda pods=pods: sched.solve(
             pods, provs, catalog, relax=False))
@@ -1626,16 +1650,16 @@ def serving_megabatch(catalog):
           "pods infeasible")
     h = reg.histogram(MEGABATCH_SLOTS)
     out = dict(requests=len(clients), pods_per_request=len(clients[0]),
-               groups=st.G, warm_s=warm_s,
+               groups=st.G, warm_s=warm_s, serial_requests=len(solo),
                serial_ms=serial_ms, serial_total_ms=sum(serial_ms),
-               serial_solves_per_s=len(clients) / (sum(serial_ms) / 1000.0))
+               serial_solves_per_s=len(solo) / (sum(serial_ms) / 1000.0))
     flushes = {}
     kernels.reset_counts()
     for n in SERVING["flushes"]:
         results, wall_ms = flush(sched, clients[:n], provs, catalog)
         equal = [plan(r) == plan(s) for r, s in zip(results, solo)]
         check(all(equal), f"a request of the {n}-flush planned differently "
-              f"from its solo solve ({equal.count(False)} of {n})")
+              f"from its solo solve ({equal.count(False)} of {len(equal)})")
         check(not any(r.served_cold for r in results),
               "a flushed request was served cold")
         flushes[n] = dict(wall_ms=wall_ms,
@@ -1660,6 +1684,7 @@ def serving_megabatch(catalog):
     check(all(e or placements_tie(a, b)
               for e, a, b in zip(cpu_equal, big, host_res)),
           "the 32-flush on cuda and on cpu disagree")
+    solo += big[len(solo):]
     # one 8-flush's launches (profiler) and host syncs, split into the
     # enqueue half (submit_many) and the read-back half (.result())
     reqs = [dict(pods=p, provisioners=provs, instance_types=catalog)
@@ -1968,10 +1993,11 @@ def guard_clean(after: str) -> None:
 
 
 #: phase 11's sizes: the slice's 40 x 2,500 pods plus 32 gangs of 16
-#: members (``bench_torch._gang_member``), and 3 paired latency samples
-#: for (b)'s ``measure_gang`` (the bench runs 9; cut when phase 16(c) came
-#: in, since each pair takes about 11 s on the card)
-GANGS = {"gangs": 32, "size": 16, "bench_pairs": 3}
+#: members (``bench_torch._gang_member``), and 1 paired latency sample
+#: for (b)'s ``measure_gang`` (the bench runs 9; cut to 3 when phase 16(c)
+#: came in and to 1 when phase 17 did, since each pair takes about 11 s
+#: on the card)
+GANGS = {"gangs": 32, "size": 16, "bench_pairs": 1}
 
 
 def gang_batch(nd: int, per: int, n_gangs: int, size: int = 16,
@@ -2323,13 +2349,15 @@ def phase_gangs():
 
 
 #: phase 12's sizes: the reference bench's ``measure_throughput`` (32
-#: clients, 4 s per concurrency, 8 slots) and ``measure_overload`` (2
-#: critical and 8 best_effort clients of 200 pods, 4 s)
-SERVICE = {"clients": 32, "seconds": 4.0, "max_slots": 8,
+#: clients, 8 slots) and ``measure_overload`` (2 critical and 8
+#: best_effort clients of 200 pods), each window 2 s (the bench's 4 s, cut
+#: when phase 17 came in)
+SERVICE = {"clients": 32, "seconds": 2.0, "max_slots": 8,
            "concurrency": (1, 8, 32), "critical": 2, "best_effort": 8,
            "overload_pods": 200, "hier_knob_pods": (10, 2500),
            "wire_trace_budget_s": 300.0}
-#: plans of phase 10(a)'s 32 solo serving solves, reused by 12(a)
+#: phase 10(a)'s reference plans of the 32 serving requests (the solo
+#: plans, then the 32-flush's), reused by 12(a) and 15(c)
 SOLO_PLANS: list = []
 
 
@@ -2751,8 +2779,8 @@ def phase_service(limit, slice_res):
 # ---------------------------------------------------------------------------
 
 #: phase 13's sizes: (a) the slice's batch through the operator over gRPC;
-#: (b) the README's full simulation (``demo --pods 500``); (c) the
-#: reference bench's ``measure_delta_serving`` defaults
+#: (b) the README's simulation (``demo --pods 500``); (c) the reference
+#: bench's ``measure_delta_serving`` defaults
 OPERATOR = {"wire": (40, 2500), "max_ticks": 8, "demo_pods": 500,
             "demo_timeout_s": 420.0, "delta_pods": 20_000,
             "delta_churn": 8, "delta_steps": 40, "delta_trace_sample": 16,
@@ -2991,24 +3019,35 @@ def demo_lines(stdout: str) -> dict:
         saved=float(down.group(4)))
 
 
-def operator_demo_cli() -> dict:
-    """(b): ``cli serve`` on the card as a subprocess, ``cli demo
-    --solver-address`` against it with no card visible, and the same demo
-    in-process on the card in a fresh process (the two demos run side by
-    side).  The scale-up lines must agree."""
-    from karpenter_tpu_torch.service.client import SolverClient
-
+def start_demo_sidecar() -> dict:
+    """(b)'s ``cli serve`` on the card as a subprocess, started before (a)
+    so that its start-up overlaps (a)'s run; it serves nothing until (b)."""
     port, obs_port = free_port(), free_port()
     env = {k: v for k, v in os.environ.items() if k != "KT_OBS_PEERS"}
-    pods = str(OPERATOR["demo_pods"])
     t_start = time.perf_counter()
-    sidecar = subprocess.Popen(
+    proc = subprocess.Popen(
         _cli("serve", "--backend", "tpu", "--port", str(port),
              "--obs-port", str(obs_port)),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    return dict(proc=proc, port=port, obs_port=obs_port, env=env,
+                t_start=t_start)
+
+
+def operator_demo_cli(started: dict) -> dict:
+    """(b): the sidecar of :func:`start_demo_sidecar`, ``cli demo
+    --solver-address`` against it with no card visible, and the same demo
+    in-process on the card in a fresh process (the two demos run side by
+    side).  The scale-up lines must agree.  ``sidecar_wait_s`` is what
+    (b) still waited for the sidecar's first Health answer."""
+    from karpenter_tpu_torch.service.client import SolverClient
+
+    sidecar, port, obs_port, env = (started["proc"], started["port"],
+                                    started["obs_port"], started["env"])
+    pods = str(OPERATOR["demo_pods"])
     procs = [sidecar]
     try:
-        deadline = time.perf_counter() + 180.0
+        t_wait = time.perf_counter()
+        deadline = started["t_start"] + 180.0
         while True:
             client = SolverClient(f"127.0.0.1:{port}", timeout=2.0)
             try:
@@ -3022,7 +3061,7 @@ def operator_demo_cli() -> dict:
             check(sidecar.poll() is None and time.perf_counter() < deadline,
                   "the sidecar never answered Health")
             time.sleep(0.5)
-        sidecar_up_s = time.perf_counter() - t_start
+        sidecar_wait_s = time.perf_counter() - t_wait
         t0 = time.perf_counter()
         remote = subprocess.Popen(
             _cli("demo", "--pods", pods, "--backend", "tpu",
@@ -3073,7 +3112,7 @@ def operator_demo_cli() -> dict:
     check(endpoints["statusz"]["admitted"].get("critical", 0) >= 1,
           "the sidecar served no critical solve")
     return dict(
-        pods=OPERATOR["demo_pods"], sidecar_up_s=sidecar_up_s,
+        pods=OPERATOR["demo_pods"], sidecar_wait_s=sidecar_wait_s,
         remote_wall_s=remote_s, in_process_wall_s=local_s,
         remote=rl, in_process=ll,
         scale_down_equal=rl["down_line"] == ll["down_line"],
@@ -3191,16 +3230,23 @@ def operator_delta_wire() -> dict:
 
 def phase_operator(st, limit, slice_res):
     """Phase 13: (a) the 100k batch through the operator over gRPC, (b)
-    the deployed two-process topology through the CLI, (c) the wire delta
-    chain.  Returns (a)'s kernel launches."""
+    the deployed two-process topology through the CLI (its sidecar started
+    before (a)), (c) the wire delta chain.  Returns (a)'s kernel
+    launches."""
     from karpenter_tpu_torch.models.catalog import generate_catalog
 
     t_phase = time.perf_counter()
     PHASE[0] = "operator"
     full = generate_catalog(full=True)
-    launches, wire = operator_wire_100k(full, st, limit, slice_res)
+    sidecar = start_demo_sidecar()
+    try:
+        launches, wire = operator_wire_100k(full, st, limit, slice_res)
+    except BaseException:
+        sidecar["proc"].kill()
+        sidecar["proc"].communicate()
+        raise
     emit("operator_wire_100k", **wire)
-    emit("operator_demo_cli", **operator_demo_cli())
+    emit("operator_demo_cli", **operator_demo_cli(sidecar))
     emit("operator_delta_wire", **operator_delta_wire(),
          phase_s=time.perf_counter() - t_phase)
     guard_clean("operator")
@@ -3477,8 +3523,8 @@ def phase_mesh(limit, slice_stats, slice_res, slice_wall_ms):
 #: phase 15's sizes: (a)/(b) the CLI over the checkout; (c) 12(a)'s
 #: closed-loop set-up at 8 and 32 clients, then the slice's batch over
 #: gRPC beside 8 clients; (d) 13(c)'s wire chain plus a session closed
-#: and re-established
-ANALYSIS = {"concurrency": (8, 32), "seconds": 4.0, "wire_clients": 8,
+#: and re-established; (c)'s windows 2 s (4 s, cut when phase 17 came in)
+ANALYSIS = {"concurrency": (8, 32), "seconds": 2.0, "wire_clients": 8,
             "second_pods": 2000, "second_steps": 4, "cli_timeout_s": 600.0}
 
 
@@ -3501,13 +3547,18 @@ def analysis_cli(*args):
 
 
 def analysis_lint() -> dict:
-    """(a): the analyzer over the port and its lock order."""
-    rc, out, wall_ms = analysis_cli("--format", "json")
+    """(a): the analyzer over the port and its lock order, the two runs
+    at once."""
+    with ThreadPoolExecutor(2) as pool:
+        lint = pool.submit(analysis_cli, "--format", "json")
+        lock_order = pool.submit(analysis_cli, "--lock-order", "--format",
+                                 "json")
+        (rc, out, wall_ms), (rc2, out2, order_ms) = (lint.result(),
+                                                     lock_order.result())
     doc = json.loads(out)
     check(rc == 0 and doc["findings"] == [],
           f"ktlint over the port: rc {rc}, {len(doc['findings'])} findings "
           f"{doc['findings'][:3]}")
-    rc2, out2, order_ms = analysis_cli("--lock-order", "--format", "json")
     order = json.loads(out2)
     check(rc2 == 0 and order["order"], "--lock-order failed")
     by_rule: dict = {}
@@ -3819,8 +3870,11 @@ def phase_analysis(full, limit, slice_stats, slice_res):
     launches."""
     t_phase = time.perf_counter()
     PHASE[0] = "analysis"
-    emit("analysis_lint", **analysis_lint())
-    emit("analysis_model", **analysis_model())
+    # (a) and (b) run on the host only: their three CLI runs at once
+    with ThreadPoolExecutor(2) as pool:
+        lint, model = pool.submit(analysis_lint), pool.submit(analysis_model)
+        emit("analysis_lint", **lint.result())
+        emit("analysis_model", **model.result())
     # the 8 clients' requests wait behind the 100k RPC in the admission
     # queue, so the brownout ladder may step (a logged warning) and
     # recover; any other trapped warning fails the run
@@ -3880,9 +3934,12 @@ def bench_cli() -> dict:
 
 
 #: 16(c): the bench's probes whose paths no earlier phase drives, run in
-#: process at the bench's sizes
+#: process at the bench's sizes, but for ``measure_tuning``'s pairs and
+#: requests per capture (the bench runs 2 pairs of 96; cut to 1 pair when
+#: phase 17 came in, a pair taking 20–38 s, then to 48 requests)
 BENCH_PROBES = ("measure_warm_coldstart", "measure_multihost_fence",
                 "measure_replay_fidelity", "measure_tuning")
+TUNING = {"pairs": 1, "n": 48}
 
 
 def bench_probes() -> dict:
@@ -3903,7 +3960,8 @@ def bench_probes() -> dict:
               "measure_multihost_fence": dict(
                   n_processes=MESH["ranks"],
                   local_devices=MESH["rank_devices"], summary=MHOST,
-                  launches=children)}
+                  launches=children),
+              "measure_tuning": dict(TUNING)}
     kernels.reset_counts()
     for name in BENCH_PROBES:
         t0 = time.perf_counter()
@@ -3971,6 +4029,140 @@ def phase_bench():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: resilience — chaos, restart and fleet failover on the card
+# ---------------------------------------------------------------------------
+
+
+#: phase 17's sizes: (a) the chaos run at 20 of the driver's 60 steps and
+#: its 1,500 pods (cut to 30, then to 20 to keep the script inside its
+#: time); (b) the restart at 1,000 pods over the driver's 4 clients (its
+#: 4,000 cut: the bench runs them); (c) the driver's defaults (3 replicas,
+#: 6 clients of 200 pods)
+RESILIENCE = {"chaos_steps": 20, "chaos_pods": 1500, "restart_pods": 1000}
+
+
+def _threads(fn):
+    """``fn()``'s result with the process's thread count at its start and
+    end (teardown must stop what the driver started).  A stopped gRPC
+    server's pool threads exit once the server is collected, so where
+    threads are left after 0.5 s the end count is read after a collection
+    and up to 2 s more for them to exit."""
+    import gc
+    import threading
+
+    start = threading.active_count()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    except AssertionError as e:  # a driver's invariant broke
+        raise SmokeFailure(f"{PHASE[0]}: {e}") from None
+    wall_s = time.perf_counter() - t0
+
+    def settle(seconds):
+        deadline = time.perf_counter() + seconds
+        while (threading.active_count() > start
+               and time.perf_counter() < deadline):
+            time.sleep(0.05)
+
+    settle(0.5)
+    if threading.active_count() > start:
+        gc.collect()
+        settle(2.0)
+    return dict(out, threads_start=start,
+                threads_end=threading.active_count(), wall_s=wall_s)
+
+
+def resilience_chaos() -> dict:
+    """17(a): ``run_chaos`` on the card (``backend="tpu"``) at a cut depth:
+    the composed 8-kind schedule against the fault-free mirror, the four
+    invariants asserted inside the driver at every step."""
+    from scripts import chaos_drive_torch as chaos
+
+    board = _threads(lambda: chaos.run_chaos(
+        steps=RESILIENCE["chaos_steps"], pods_n=RESILIENCE["chaos_pods"],
+        verbose=False))
+    typed = sum(board["typed_errors"].values())
+    check(board["device"].startswith("cuda"), f"chaos ran on {board}")
+    check(board["faults_injected"] >= 6
+          and len(board["injected_by_rule"]) >= 6,
+          f"the schedule did not fire: {board['injected_by_rule']}")
+    check(board["parity_checked_steps"] >= board["steps"] - typed,
+          f"{board['parity_checked_steps']} parity-checked steps of "
+          f"{board['steps']} with {typed} typed errors")
+    return board
+
+
+def resilience_restart() -> dict:
+    """17(b): ``run_restart(snapshot=True)``: the sidecar subprocess on the
+    card SIGTERM'd mid-chain and relaunched on the card; every session
+    restored warm.  Both sidecars report their kernel launches at
+    shutdown."""
+    from scripts import chaos_drive_torch as chaos
+
+    board = _threads(lambda: chaos.run_restart(
+        pods_n=RESILIENCE["restart_pods"], snapshot=True, verbose=False))
+    check(board["extra_resends"] == 0,
+          f"{board['extra_resends']} re-establishes after the restart")
+    check(board["device"].startswith("cuda"), f"restart ran on {board}")
+    return board
+
+
+def resilience_fleet() -> dict:
+    """17(c): ``run_fleet(mode="kill")``: three replicas and the mirror on
+    the card, one replica hard-killed, its sessions steal-adopted warm.
+    The clients whose home died log the endpoint dead (one warning each),
+    which is expected here."""
+    from scripts import chaos_drive_torch as chaos
+
+    n_faults = len(FAULTS.records)
+    board = _threads(lambda: chaos.run_fleet(mode="kill", verbose=False))
+    trapped = FAULTS.records[n_faults:]
+    victim_sock = board["victim"].replace("replica-", "/r") + ".sock"
+    check(all(r.startswith("karpenter_tpu_torch.service.client: fleet "
+                           "endpoint ") and r.endswith(f"{victim_sock} "
+                                                       "-> dead")
+              for r in trapped), f"unexpected warnings: {trapped}")
+    del FAULTS.records[n_faults:]
+    stolen = board["adoptions"].get("stolen", 0)
+    check(board["victim_sessions"] >= 1, "the kill orphaned no session")
+    check(board["extra_resends"] == 0,
+          f"{board['extra_resends']} re-establishes after the kill")
+    check(stolen >= board["victim_sessions"],
+          f"{stolen} steals for {board['victim_sessions']} orphans")
+    return dict(board, dead_endpoint_warnings=len(trapped))
+
+
+def phase_resilience():
+    """Phase 17: (a) the chaos run, (b) the kill-and-restart, (c) the
+    fleet kill, all on the card.  Kernel counts are zeroed just before and
+    read just after, the restart's two sidecars' added from the counts
+    they print; no hand-written kernel is on these paths.  Returns the
+    in-process and the sidecars' launches, summed."""
+    from karpenter_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    PHASE[0] = "resilience"
+    kernels.reset_counts()
+    emit("resilience_chaos", **resilience_chaos())
+    restart = resilience_restart()
+    emit("resilience_restart", **restart)
+    emit("resilience_fleet", **resilience_fleet())
+    launches = kernels.counts()
+    children = {name: sum(c.get(name, 0) for c in restart["server_launches"])
+                for name in launches}
+    check(all(set(c) == set(launches) for c in restart["server_launches"]),
+          f"a sidecar counted {restart['server_launches']}, not every "
+          "kernel")
+    check(not any(launches.values()) and not any(children.values()),
+          f"a hand-written kernel launched on a resilience path: "
+          f"{launches} in process, {children} in the sidecars")
+    emit("resilience", launches=launches, sidecar_launches=children,
+         phase_s=time.perf_counter() - t_phase)
+    guard_clean("resilience")
+    return {name: launches[name] + children[name] for name in launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -4021,6 +4213,7 @@ def main() -> int:
         analysis_launches = phase_analysis(generate_catalog(full=True),
                                            limit, stats, slice_res)
         bench_launches = phase_bench()
+        resilience_launches = phase_resilience()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4033,7 +4226,8 @@ def main() -> int:
         "launches": (launches[name] + flush_launches[name]
                      + gang_launches[name] + service_launches[name]
                      + operator_launches[name] + mesh_launches[name]
-                     + analysis_launches[name] + bench_launches[name]),
+                     + analysis_launches[name] + bench_launches[name]
+                     + resilience_launches[name]),
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],

@@ -16,9 +16,10 @@ torch device the in-process scheduler (or the sidecar, or the bench) runs
 on — the CUDA card by default, raising without one; ``cpu`` runs the plain
 PyTorch path on the host.  ``--profile-port`` (the reference's JAX
 profiler server) is refused when non-zero: the port's device profile is
-``python -m karpenter_tpu_torch.profile_wave``.  ``--jit-cache-dir`` is accepted, since
-deployments pass it, and says in one line that the port has no compile
-cache.  ``metrics-doc`` writes to stdout or ``--out``, never over the
+``python -m karpenter_tpu_torch.profile_wave``.  ``--jit-cache-dir`` names
+the directory the port's one compiled artifact, its CUDA kernel library,
+is built into and loaded from (``kernels.build_dir``; ``KT_JIT_CACHE``
+wins when set), so a restarted replica runs no ``nvcc``.  ``metrics-doc`` writes to stdout or ``--out``, never over the
 reference's ``docs/METRICS.md``.
 """
 
@@ -48,10 +49,17 @@ def _refuse_profile(port: int) -> bool:
     return False
 
 
-def _note_jit_cache(cache_dir: str) -> None:
+def _jit_cache(cache_dir: str) -> None:
+    """Wire ``--jit-cache-dir`` as the kernel library's build directory
+    through ``KT_JIT_CACHE``, so child processes inherit it (a set
+    ``KT_JIT_CACHE`` still wins; empty or ``"0"`` leaves it to the flag),
+    and say in one line where it is."""
     if cache_dir:
-        print(f"--jit-cache-dir {cache_dir}: the port compiles no programs "
-              f"and keeps no compile cache; nothing is written there",
+        from . import kernels
+
+        if not kernels._given(os.environ.get("KT_JIT_CACHE", "")):
+            os.environ["KT_JIT_CACHE"] = cache_dir
+        print(f"kernel library cache at {kernels.build_dir()}",
               file=sys.stderr)
 
 
@@ -60,7 +68,7 @@ def cmd_demo(args) -> int:
 
     if _refuse_profile(args.profile_port):
         return 2
-    _note_jit_cache(args.jit_cache_dir)
+    _jit_cache(args.jit_cache_dir)
     argv = ["--demo", "--pods", str(args.pods), "--backend", args.backend]
     if args.small:
         argv.append("--small")
@@ -78,7 +86,7 @@ def cmd_demo(args) -> int:
 
 
 def cmd_solve(args) -> int:
-    _note_jit_cache(args.jit_cache_dir)
+    _jit_cache(args.jit_cache_dir)
 
     from .models.catalog import generate_catalog
     from .models.pod import PodSpec
@@ -128,7 +136,7 @@ def cmd_serve(args) -> int:
 
     if _refuse_profile(args.profile_port):
         return 2
-    _note_jit_cache(args.jit_cache_dir)
+    _jit_cache(args.jit_cache_dir)
     argv = ["--port", str(args.port), "--backend", args.backend,
             "--obs-port", str(args.obs_port)]
     if args.device:
@@ -232,8 +240,8 @@ def main(argv=None) -> int:
     d.add_argument("--profile-port", type=int, default=0,
                    help="refused when non-zero (see profile_wave)")
     d.add_argument("--jit-cache-dir", default=os.environ.get("KT_JIT_CACHE_DIR", ""),
-                   help="accepted for deployments that pass it; the port "
-                        "keeps no compile cache")
+                   help="kernel library cache directory (KT_JIT_CACHE "
+                        "wins when set)")
     d.add_argument("--solver-address",
                    default=os.environ.get("KARPENTER_SOLVER_ADDR", ""),
                    help="host:port of a solver sidecar (serve); empty "
@@ -255,7 +263,8 @@ def main(argv=None) -> int:
     s.add_argument("--assignments", action="store_true", help="include per-pod assignments")
     s.add_argument("--compact", action="store_true")
     s.add_argument("--jit-cache-dir", default=os.environ.get("KT_JIT_CACHE_DIR", ""),
-                   help="accepted; the port keeps no compile cache")
+                   help="kernel library cache directory (KT_JIT_CACHE "
+                        "wins when set)")
     _device_arg(s)
     s.set_defaults(fn=cmd_solve)
 
@@ -268,8 +277,8 @@ def main(argv=None) -> int:
     v.add_argument("--profile-port", type=int, default=0,
                    help="refused when non-zero (see profile_wave)")
     v.add_argument("--jit-cache-dir", default=os.environ.get("KT_JIT_CACHE_DIR", ""),
-                   help="accepted for deployments that pass it; the port "
-                        "keeps no compile cache")
+                   help="kernel library cache directory (KT_JIT_CACHE "
+                        "wins when set)")
     v.add_argument("--max-slots", type=int, default=None,
                    help="megabatch request slots per coalescer flush "
                         "(KT_MAX_SLOTS; 1 disables cross-request batching)")

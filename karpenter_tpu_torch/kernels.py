@@ -4,9 +4,20 @@ Each ``csrc/*.cu`` file is one :class:`Library` with one or more plain C
 launchers, each a :class:`Kernel` entry.  A library is compiled from the
 checkout's sources at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-into ``karpenter_tpu_torch/_build/`` (one library per source content
-hash, so an edited source rebuilds) and loaded with ``ctypes``.  Nothing
-is compiled or loaded at import: the CPU tests import every module.
+into the build directory and loaded with ``ctypes``.  A library is named
+by a hash of its compile: the source's bytes, :data:`NVCC_FLAGS` and
+``nvcc --version``, so an edited source, a changed flag or another
+toolkit builds anew.  Nothing is compiled or loaded at import: the CPU
+tests import every module.
+
+The build directory is resolved when a library is built or loaded, not at
+import (:func:`build_dir`): ``KT_JIT_CACHE`` when it is set and neither
+empty nor ``"0"`` (the CLI's ``--jit-cache-dir`` sets it when it is
+not), else ``karpenter_tpu_torch/_build/``.  A replica
+pointed at a directory a sibling or an earlier run has filled loads the
+library from there and runs no ``nvcc``.  Two processes building into one
+directory at once each compile to their own ``*.{pid}.tmp`` and rename it
+into place, so each loads a whole library.
 
 Every kernel entry carries a plain ``launches`` counter that its wrapper
 adds one to where it launches the kernel, and nowhere else.
@@ -15,16 +26,34 @@ adds one to where it launches the kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
+#: one build at a time in this process: two threads share one pid, so they
+#: would share one temporary file
+_BUILD_LOCK = threading.Lock()
+
+
+def _given(path: Optional[str]) -> bool:
+    return bool(path) and path != "0"
+
+
+def build_dir() -> Path:
+    """Where libraries are built and loaded from, resolved now:
+    ``KT_JIT_CACHE``, else ``karpenter_tpu_torch/_build/``."""
+    env = os.environ.get("KT_JIT_CACHE", "")
+    return Path(env) if _given(env) else _BUILD
+
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -42,13 +71,32 @@ def nvcc_path() -> str:
     return found
 
 
+def compiler_version() -> str:
+    """``nvcc --version``'s output; "" where there is no ``nvcc`` (nothing
+    is built there)."""
+    try:
+        nvcc = nvcc_path()
+    except RuntimeError:
+        return ""
+    return _version_of(nvcc)
+
+
+@functools.lru_cache(maxsize=None)
+def _version_of(compiler: str) -> str:
+    return subprocess.run([compiler, "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
 class Library:
     """One CUDA source, compiled to one shared library."""
 
     def __init__(self, name: str, source: str) -> None:
         self.name = name
         self.source = _CSRC / source
+        #: seconds this process spent in ``nvcc`` for it (None: not built
+        #: here) and in loading it
         self.build_s: Optional[float] = None
+        self.load_s: Optional[float] = None
         self.handle = None
 
     @property
@@ -57,8 +105,12 @@ class Library:
         return str(self.source.relative_to(_PKG.parent))
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
-        return _BUILD / f"lib{self.name}_{digest}.so"
+        """The library's file in :func:`build_dir`, named by a hash of the
+        source, the flags and the compiler's version."""
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update("\0".join((*NVCC_FLAGS, compiler_version())).encode())
+        digest = h.hexdigest()[:12]
+        return build_dir() / f"lib{self.name}_{digest}.so"
 
     def compile_command(self) -> List[str]:
         return [nvcc_path(), *NVCC_FLAGS, "-o", str(self.library_path()),
@@ -96,14 +148,18 @@ def build(kernels: Sequence[Kernel]) -> Dict[str, float]:
     """Compile every library of ``kernels`` not built yet — one ``nvcc`` per
     source, all started together — and load them.  Returns seconds per
     library built."""
-    import time
+    with _BUILD_LOCK:
+        return _build(kernels)
 
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    todo = [lib for lib in libraries(kernels) if lib.handle is None]
+
+def _build(kernels: Sequence[Kernel]) -> Dict[str, float]:
+    todo = {lib: lib.library_path()
+            for lib in libraries(kernels) if lib.handle is None}
+    if todo:
+        build_dir().mkdir(parents=True, exist_ok=True)
     procs = []
     t0 = time.perf_counter()
-    for lib in todo:
-        path = lib.library_path()
+    for lib, path in todo.items():
         if path.exists():
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -119,11 +175,13 @@ def build(kernels: Sequence[Kernel]) -> Dict[str, float]:
             errors.append(f"{lib.name}: nvcc exited {proc.returncode}\n"
                           f"{out.decode(errors='replace')}")
             continue
-        os.replace(tmp, lib.library_path())
+        os.replace(tmp, todo[lib])
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-    for lib in todo:
-        lib.handle = ctypes.CDLL(str(lib.library_path()))
+    for lib, path in todo.items():
+        t1 = time.perf_counter()
+        lib.handle = ctypes.CDLL(str(path))
+        lib.load_s = time.perf_counter() - t1
     return {lib.name: (lib.build_s or 0.0) for lib in todo}
 
 

@@ -23,6 +23,7 @@ Run standalone:  python -m karpenter_tpu_torch.service.server --port 50151
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import queue
@@ -1908,6 +1909,10 @@ def main(argv=None) -> int:
     service.close()
     for sched in service._schedulers.values():
         sched.stop_warms()
+    # what a restart harness reads to see which kernels this process ran
+    from .. import kernels
+
+    print(f"kernel launches: {json.dumps(kernels.counts())}", flush=True)
     print("solver sidecar stopped", flush=True)
     return 0
 

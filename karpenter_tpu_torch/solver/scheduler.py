@@ -1048,9 +1048,23 @@ class BatchScheduler:
         number of warms accepted; cheap to call again (signatures dedupe).
         The relax rung's warm comes with the serving layer.  Nothing is
         warmed while the device is latched unhealthy (a warm against a
-        wedged card would hang its thread too)."""
-        if (self.backend not in ("auto", "tpu") or not self.compile_behind
-                or not self._guard.healthy):
+        wedged card would hang its thread too).
+
+        On the card this first loads every kernel library
+        (``kernels.build``), from the cache directory when a sibling or an
+        earlier run built it there, so no solve runs ``nvcc``; on the host
+        nothing is built."""
+        if self.backend not in ("auto", "tpu") or not self._guard.healthy:
+            return 0
+        if self.device.type == "cuda":
+            from .. import kernels
+
+            t0 = time.perf_counter()
+            built = kernels.build(kernels.ALL)
+            if built:
+                logger.info("kernel libraries ready in %.2fs (%s)",
+                            time.perf_counter() - t0, built)
+        if not self.compile_behind:
             return 0
         started = 0
         for st in self._profile_tensors(provisioners, instance_types,

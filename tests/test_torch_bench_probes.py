@@ -6,13 +6,16 @@ headline) against the reference bench's (``bench.py``) on the CPU.
 - the port's ``solver/validate.py`` returns the reference validator's
   violations on the same plans (valid, a dropped pod, an overfilled node,
   a broken zone spread, a violated provisioner limit, a taint);
-- each of the twelve probes, run on ``device="cpu"`` at a small size
+- each of the fifteen probes, run on ``device="cpu"`` at a small size
   through its own size arguments, returns exactly the reference probe's
   key set: from running the reference at the same small size where that
   is cheap (replay, gangs), and from ``bench.py``'s source
   otherwise (the keys of the dicts each probe returns, the f-string keys
   expanded over its scenario names; the warmed cold start's from the
-  record ``run_bench`` builds of its tuple);
+  record ``run_bench`` builds of its tuple), plus the keys the port adds
+  (:data:`PORT_KEYS`: the restart and fleet probes' backend, the
+  relaunch's wait for health, the kernel library's nvcc and load
+  seconds);
 - the parity keys hold: ``sweep_what_ifs`` decisions equal the
   reference's on a 40-node, 4-candidate ``_sweep_cluster``; the gang
   probe's outcomes equal the reference's; the probes' own equality
@@ -25,7 +28,9 @@ headline) against the reference bench's (``bench.py``) on the CPU.
   dict they are given; ``measure_multihost_fence`` reads a given rank
   verdict instead of running the ranks again; the replica probes remove
   their socket directories;
-- ``NOT_PORTED`` names exactly the three probes left to ROADMAP A14;
+- ``NOT_PORTED`` is empty: every reference probe has its port;
+- ``check_budgets`` flags a breach of each restart, fleet and
+  cold-restart gate;
 - ``scripts/dryrun_multihost_torch.py --lone-ab --device cpu`` prints one
   parseable ``LONE_AB`` line and one ``LAUNCHES`` line.
 
@@ -66,7 +71,7 @@ def _load(name, file):
 
 bench = _load("benchmod_torch_bench_probes", "bench.py")
 
-#: the twelve ported probes and the small sizes the CPU runs them at
+#: the ported probes and the small sizes the CPU runs them at
 SMALL = {
     "measure_throughput": dict(duration_s=0.2, max_slots=8, clients=2,
                                per=1),
@@ -83,10 +88,23 @@ SMALL = {
                                     lone_ab_devices=2, lone_ab_pairs=1),
     "measure_replay_fidelity": dict(n=12, mean_rate=40.0),
     "measure_tuning": dict(n=6, mean_rate=80.0, pairs=1),
+    "measure_cold_restart": {},
+    "measure_restart_recovery": dict(pods_n=300, clients=2, pre_steps=2,
+                                     post_steps=2, churn=3),
+    "measure_fleet_failover": dict(clients=4, pods_n=320, pre_steps=2,
+                                   post_steps=2, churn=3),
+}
+#: keys a port probe returns beyond the reference probe's
+PORT_KEYS = {
+    "measure_restart_recovery": {"restart_backend",
+                                 "restart_relaunch_ready_s"},
+    "measure_fleet_failover": {"fleet_backend"},
+    "measure_cold_restart": {"cold_restart_nvcc_s", "cold_restart_load_s"},
 }
 #: the probes whose work runs in child processes: started together
 CHILD_PROBES = ("measure_sharded_throughput", "measure_warm_coldstart",
-                "measure_multihost_fence")
+                "measure_multihost_fence", "measure_cold_restart",
+                "measure_restart_recovery")
 #: the reference probes run here at the same small size (cheap on the
 #: CPU); the others' keys come from the source
 REF_SMALL = {
@@ -99,7 +117,8 @@ LONE_AB = [sys.executable, str(ROOT / "scripts" / "dryrun_multihost_torch.py"),
 _PORT_RUNS: dict = {}
 #: the kernel launches the child-process probes' children report
 CHILD_LAUNCHES = {"measure_warm_coldstart": {},
-                  "measure_multihost_fence": {}}
+                  "measure_multihost_fence": {},
+                  "measure_cold_restart": {}}
 
 
 @pytest.fixture(scope="module")
@@ -201,6 +220,10 @@ def _fn(tree, name):
                 if isinstance(n, ast.FunctionDef) and n.name == name)
 
 
+#: the names a reference probe builds its fragment under
+FRAGMENT = ("out", "rec")
+
+
 def _walk_own(fn):
     """The nodes of ``fn``'s own body, nested functions left out (their
     dicts are internal, not the probe's fragment)."""
@@ -217,7 +240,8 @@ def _walk_own(fn):
 def source_keys(name):
     """The record keys the reference probe ``name`` returns, read from
     ``bench.py``: string keys of the dicts it returns, builds as its
-    fragment ``out`` or merges into it, and of ``out[...]`` assignments,
+    fragment (``out`` or ``rec``) or merges into it, and of ``out[...]``
+    / ``rec[...]`` assignments,
     an f-string key expanded
     over the first field of its ``scenarios`` tuples.  Failure-path keys
     (``*_error``, ``multihost_skipped``) are left out: the port raises
@@ -259,19 +283,19 @@ def source_keys(name):
             for k in node.value.keys:
                 take(k)
         elif (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
-              and getattr(node.targets[0], "id", "") == "out"):
+              and getattr(node.targets[0], "id", "") in FRAGMENT):
             for k in node.value.keys:
                 take(k)
         elif (isinstance(node, ast.Call)
               and getattr(node.func, "attr", "") == "update"
-              and getattr(node.func.value, "id", "") == "out"
+              and getattr(node.func.value, "id", "") in FRAGMENT
               and node.args and isinstance(node.args[0], ast.Dict)):
             for k in node.args[0].keys:
                 take(k)
         elif isinstance(node, ast.Assign):
             for t in node.targets:
                 if (isinstance(t, ast.Subscript)
-                        and getattr(t.value, "id", "") == "out"):
+                        and getattr(t.value, "id", "") in FRAGMENT):
                     take(t.slice)
     return {k for k in keys
             if not k.endswith("_error") and k != "multihost_skipped"}
@@ -288,22 +312,86 @@ def test_probe_returns_the_reference_keys(name, reference_runs, child_runs):
             else source_keys(name))
     assert want, name
     got = port_run(name, child_runs)
-    assert set(got) == want
+    assert set(got) == want | PORT_KEYS.get(name, set())
     assert set(bt.check_budgets(got)) <= {"budget_flags"}
 
 
 def test_twelve_probes_and_not_ported():
-    assert len(SMALL) == 12
-    assert bt.NOT_PORTED == ("measure_cold_restart",
-                             "measure_restart_recovery",
-                             "measure_fleet_failover")
+    assert len(SMALL) == 15
+    assert bt.NOT_PORTED == ()
     ref = {n.name for n in ast.parse((ROOT / "bench.py").read_text()).body
            if isinstance(n, ast.FunctionDef) and n.name.startswith("measure_")}
     ported = {n for n in ref if hasattr(bt, n)}
-    assert ref - ported == set(bt.NOT_PORTED)
+    assert ref == ported
     assert set(SMALL) | {"measure_trace_overhead", "measure_ts_overhead",
                          "measure_coldstart", "measure_hierarchical"} \
         == ported
+
+
+def test_run_bench_calls_the_probes_in_the_reference_order():
+    """``run_bench`` calls every probe in ``bench.py``'s order."""
+    def calls(tree):
+        run = _fn(tree, "run_bench")
+        names = [n for n in ast.walk(run)
+                 if isinstance(n, ast.Name) and n.id.startswith("measure_")]
+        return [n.id for n in sorted(
+            names, key=lambda n: (n.lineno, n.col_offset))]
+
+    ref = [n for n in calls(ast.parse((ROOT / "bench.py").read_text()))
+           if n != "measure_tensorize"]
+    port = calls(ast.parse((ROOT / "bench_torch.py").read_text()))
+    # the reference calls each probe once, in order; the port names them
+    # in its probe table (the tensorize tiers are the headline's)
+    ref_order = [n for n in dict.fromkeys(ref)]
+    port_order = [n for n in dict.fromkeys(port) if n != "measure_tensorize"]
+    assert port_order == ref_order
+
+
+#: a record of the three probes with every gate held, and one breach of
+#: each gate
+_HELD = {
+    "restart_recovery_clients": 4,
+    "restart_recovery_resends_with_snapshot": 0,
+    "restart_recovery_resends_without": 4,
+    "restart_first_delta_p50_ms": 3.0,
+    "fleet_victim_sessions": 2, "fleet_warm_failover_resends": 0,
+    "fleet_steal_adoptions": 2, "fleet_cold_victim_sessions": 2,
+    "fleet_cold_failover_resends": 2,
+    "cold_restart_first_ms": 9000.0, "cold_restart_second_ms": 800.0,
+    "cold_restart_cache_populated": True, "cold_restart_fleet_ms": 900.0,
+}
+_BREACHES = {
+    "restart_resends_with_snapshot": (
+        {"restart_recovery_resends_with_snapshot": 1}, "WITH a session"),
+    "restart_resends_without": (
+        {"restart_recovery_resends_without": 3}, "snapshot-less restart"),
+    "restart_first_delta": (
+        {"restart_first_delta_p50_ms": 251.0}, "restore budget"),
+    "fleet_warm_resends": (
+        {"fleet_warm_failover_resends": 1}, "kill-one-of-N"),
+    "fleet_no_victims": (
+        {"fleet_victim_sessions": 0, "fleet_steal_adoptions": 0},
+        "zero sessions"),
+    "fleet_steals": ({"fleet_steal_adoptions": 1}, "lease-steal"),
+    "fleet_cold": ({"fleet_cold_failover_resends": 3}, "no-spool fleet"),
+    "cold_restart_unpopulated": (
+        {"cold_restart_cache_populated": False}, "directory empty"),
+    "cold_restart_second": (
+        {"cold_restart_second_ms": 9000.0}, "did not improve"),
+    "cold_restart_fleet": (
+        {"cold_restart_fleet_ms": 9500.0}, "second-replica"),
+}
+
+
+def test_held_gates_raise_no_flag():
+    assert bt.check_budgets(dict(_HELD)).get("budget_flags", []) == []
+
+
+@pytest.mark.parametrize("case", sorted(_BREACHES))
+def test_check_budgets_flags_a_breach_of_each_new_gate(case):
+    change, phrase = _BREACHES[case]
+    flags = bt.check_budgets({**_HELD, **change}).get("budget_flags", [])
+    assert len(flags) == 1 and phrase in flags[0], flags
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ aside); the remote demo — ``cli serve --device cpu`` as a sidecar and
 ``cli demo --solver-address`` with no card visible — prints what the
 in-process demo prints.  The port refuses ``bench`` without a card (it
 runs ``bench_all_torch.py``, on the card or with ``--device cpu``) and a
-non-zero ``--profile-port``, with their messages, says in one line that
-``--jit-cache-dir`` has no effect, and writes ``metrics-doc`` to stdout
+non-zero ``--profile-port``, with their messages, says in one line where
+``--jit-cache-dir`` puts the kernel library (building nothing on the
+CPU), and writes ``metrics-doc`` to stdout
 or ``--out`` but never over the reference's ``docs/METRICS.md``.
 
 Tolerance: equal.
@@ -197,9 +198,18 @@ def test_jit_cache_dir_says_it_does_nothing(tmp_path):
     b = port_cli("solve", "--pods", "4", "--small", "--backend", "oracle",
                  "--device", "cpu", "--jit-cache-dir", str(cache))
     assert b.returncode == 0
-    notes = [ln for ln in b.stderr.splitlines() if "--jit-cache-dir" in ln]
-    assert len(notes) == 1 and "no compile cache" in notes[0]
+    notes = [ln for ln in b.stderr.splitlines() if "cache at" in ln]
+    assert notes == [f"kernel library cache at {cache}"]
+    # a CPU solve builds no kernel library, so the directory is not made
     assert not cache.exists()
+    # KT_JIT_CACHE wins over the flag
+    env_cache = tmp_path / "env"
+    b = port_cli("solve", "--pods", "4", "--small", "--backend", "oracle",
+                 "--device", "cpu", "--jit-cache-dir", str(cache),
+                 env={"KT_JIT_CACHE": str(env_cache)})
+    assert b.returncode == 0
+    assert f"kernel library cache at {env_cache}" in b.stderr.splitlines()
+    assert not cache.exists() and not env_cache.exists()
 
 
 def test_metrics_doc_goes_to_stdout_or_out_never_the_reference_page(

@@ -24,7 +24,10 @@ answers a serving request over gRPC with the plan of a direct ``cuda``
 solve, and an ``Operator`` dialing it provisions what an in-process
 operator on the card provisions.  The bench's consolidation-sweep probe
 (``bench_torch.measure_consolidation_sweep``) makes the serial loop's
-decisions in one batched dispatch on the card.
+decisions in one batched dispatch on the card.  The kernel-library cache
+(``KT_JIT_CACHE``): the bench's cold-restart children populate it and
+then load from it, and a card warm in a fresh process loads the library
+from it without running nvcc.
 """
 
 import numpy as np
@@ -227,9 +230,9 @@ def test_screen_cuda_equals_cpu(cuda):
 
 
 def test_repack_controllers_cuda_equals_cpu(cuda):
-    """The controllers' repack loop (chip_smoke phase 9(c), 60 nodes): the
-    same actions, final cluster and bindings on ``cuda`` as on ``cpu``,
-    with the screen run on the card."""
+    """The controllers' repack loop (chip_smoke phase 9(c)'s, here at 60
+    nodes): the same actions, final cluster and bindings on ``cuda`` as on
+    ``cpu``, with the screen run on the card."""
     from karpenter_tpu_torch import repack
     from karpenter_tpu_torch.models.catalog import generate_catalog
     from karpenter_tpu_torch.solver import consolidation as cons
@@ -494,3 +497,66 @@ def test_bench_sweep_probe_on_cuda(cuda):
     assert rec["sweep_path"] == "batched" and rec["sweep_dispatches"] == 1
     assert not any("diverged" in f for f in
                    bt.check_budgets(rec).get("budget_flags", []))
+
+
+def test_cold_restart_children_populate_then_load_the_cache(cuda):
+    """``bench_torch.measure_cold_restart`` on the card: the first fresh
+    process runs nvcc into its ``KT_JIT_CACHE`` directory, the second and
+    the two concurrent ones load the library from it and come in under
+    the first; no child launches a kernel during its warm."""
+    import bench_torch as bt
+    from karpenter_tpu_torch import kernels
+
+    launches = {}
+    rec = bt.measure_cold_restart(cuda, launches=launches)
+    assert rec["cold_restart_cache_populated"] is True
+    assert rec["cold_restart_second_ms"] < rec["cold_restart_first_ms"]
+    assert rec["cold_restart_fleet_ms"] < rec["cold_restart_first_ms"]
+    assert rec["cold_restart_fleet_replicas"] == 2
+    assert rec["cold_restart_nvcc_s"] > 0
+    assert rec["cold_restart_load_s"] is not None
+    assert launches == {k.name: 0 for k in kernels.ALL}
+
+
+_CACHED_WARM = """
+import json
+from karpenter_tpu_torch import kernels
+from karpenter_tpu_torch.models.catalog import generate_catalog
+from karpenter_tpu_torch.models.provisioner import Provisioner
+from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+sched = BatchScheduler(backend="tpu", device="cuda")
+sched.precompile_buckets([Provisioner(name="default").with_defaults()],
+                         generate_catalog(full=False),
+                         profiles=((2, 8, False),), mega_slots=(), wait=True)
+sched.stop_warms()
+print(json.dumps({lib.name: [lib.build_s, lib.load_s, lib.handle is not None,
+                             str(lib.library_path())]
+                  for lib in kernels.libraries()}))
+"""
+
+
+def test_a_card_warm_loads_the_library_from_the_cache(cuda, tmp_path):
+    """A fresh process whose ``KT_JIT_CACHE`` holds the library (copied
+    from this process's build) loads it in its warm and runs no nvcc."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from karpenter_tpu_torch import kernels
+
+    for lib in kernels.libraries():
+        shutil.copy(lib.library_path(), tmp_path / lib.library_path().name)
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, KT_JIT_CACHE=str(tmp_path), PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, "-c", _CACHED_WARM], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for lib in kernels.libraries():
+        build_s, load_s, loaded, path = got[lib.name]
+        assert build_s is None and load_s is not None and loaded
+        assert Path(path).parent == tmp_path
