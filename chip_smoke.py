@@ -30,7 +30,17 @@ no result):
    loop's score step as the host pays it, fused and through the host
    price chain with the price-row entry;
 6. parity — a smaller hierarchical batch with a binding limit solved on
-   ``cuda`` and on ``cpu``: the node plans must agree;
+   ``cuda`` and on ``cpu``: the node plans must agree; then the reference
+   (a ``reference`` line): :data:`LATER_HIER`'s batch, 10 of the slice's
+   deployments at 2,500 pods each (25,000 pods, routed hierarchically by
+   :func:`hier_at`), solved on the card under a cpu limit at its
+   unconstrained buy.  Phases 9(a), 10(b), 11(a), 12(c), 14(a) and 15(c)
+   drive their paths with that batch, cut from the slice's 40 deployments
+   to fit the time limit, and are held to this plan and limit (the record
+   keys still say ``slice``).  13(a) keeps the slice's batch: it holds the
+   operator's launched nodes to the plan's $/hr, and on this batch the
+   plan prices the price loop's re-solved nodes at their dual-adjusted
+   prices (ROADMAP C11);
 7. relax — the relax rung on the flat path: 50,000 pods in 20
    complementary unconstrained deployments, and a 5,000-pod batch whose
    first 10 deployments carry a zone spread, each solved on ``cuda`` with
@@ -43,42 +53,43 @@ no result):
    ``cuda`` and on ``cpu`` (equal vectors), and a 16-candidate what-if
    sweep over a 300-node cluster, batched in one dispatch, against the
    serial loop of what-if solves (equal decisions);
-9. controllers — (a) the slice's 100,000-pod batch provisioned through
+9. controllers — (a) the reference's batch provisioned through
    ``ProvisioningController`` (pods added to a ``ClusterState`` under the
-   slice's provisioner, the batching window passed, machines created on
+   reference's provisioner, the batching window passed, machines created on
    the fake cloud, pods bound): hierarchical routing, one
-   ``price_step_scores`` launch per price iteration, the slice's plan
+   ``price_step_scores`` launch per price iteration, the reference's plan
    (equal or ``placements_tie``), every pod bound to a node that exists,
    the limit held; (b) on the config-4 repack fleet: the consolidation
    evaluation's screen step at 5,000 nodes (compat rows, one screen of
    every single and structured subset on the card), one full
-   deprovisioning reconcile at 100 nodes (the screen on the card, a
+   deprovisioning reconcile at 50 nodes (the screen on the card, a
    proposed action executed, the fleet settled, a warm reconcile), and
-   the ladder driven to convergence at 40 nodes (no pod pending, every
+   the ladder driven to convergence at 20 nodes (no pod pending, every
    pod bound once, no node over its allocatable, a lower cost); (c) a
-   40-node fleet driven to convergence on ``cuda`` (that is (b)'s run)
+   20-node fleet driven to convergence on ``cuda`` (that is (b)'s run)
    and on ``cpu``: equal actions, final cluster and bindings.  The sizes are cut from the
    reference bench's 5,000 and 2,000 nodes to fit the time
    (:data:`REPACK_SIZES`);
 10. serving — (a) the reference bench's 32 serving requests (320 pods in 8
     zone-spread groups each, small catalog) through
     ``BatchScheduler(backend="auto").submit_many`` in flushes of 1, 8 and
-    32 against the first 8 solved one by one (the serial baseline): every
+    32 against the first 4 solved one by one (the serial baseline): every
     flushed plan of those equal to its solo plan node for node, the
     32-flush on ``cpu`` equal or ``placements_tie``, ``MEGABATCH_SLOTS`` at 1, 8 and
     32, no cold fallback; an 8-flush's launches and host syncs (enqueue
-    and read-back); (b) the slice's 100,000-pod batch under the slice's
+    and read-back); (b) the reference's batch under the reference's
     limit in one flush beside 7 serving requests: hierarchical routing,
-    one ``price_step_scores`` launch per price iteration, the slice's
+    one ``price_step_scores`` launch per price iteration, the reference's
     plan, the serving plans equal to their solo plans; (c) the bench's
     ``measure_warmstart`` chain (20,000 unconstrained pods, 40 steps of 8
     removals and 8 adds through ``TpuSolver.solve_delta``): step p50/p99,
-    modes, fallbacks, the final cost within 1.02 of a fresh solve; (d) 10
+    modes, fallbacks, the final cost within 1.02 of a fresh solve; (d) 5
     ``BatchScheduler.solve_delta`` steps on the device backend from the
     same base, each adding one zone-spread deployment (the scan tier), on
     ``cuda`` and on ``cpu``: the same modes and final cluster;
-11. gangs and resilience — (a) ``gang-hier-100k``: the slice's 100,000
-    pods plus 32 gangs of 16 members (1 cpu, 0.5 GiB), one gang doomed by
+11. gangs and resilience — (a) ``gang-hier-100k``: the reference's
+    25,000 pods (cut from the slice's 100,000) plus 32 gangs of 16
+    members (1 cpu, 0.5 GiB), one gang doomed by
     a member pinned to ``zone-none`` and one short roster (12 of 16),
     solved like the slice (limit at 99% of this batch's own buy):
     hierarchical routing, one ``price_step_scores`` launch per price
@@ -96,17 +107,17 @@ no result):
     ``auto`` backend through ``ProvisioningController``;
 12. service — the solver sidecar: (a) the reference bench's
     ``measure_throughput`` through ``SolvePipeline`` on ``backend="tpu"``
-    (32 clients of 320 pods, 2 s at concurrency 1 on a 1-slot pipeline,
+    (32 clients of 320 pods, 1 s at concurrency 1 on a 1-slot pipeline,
     then 1, 8 and 32 on an 8-slot one): solves/s, slot occupancy, the
     lone-request latency ratio, the device busy share by CUDA events,
     every tenant's plan equal to 10(a)'s, c32 above c1; (b) the
     bench's ``measure_overload``: 2 ``critical`` and 8 ``best_effort``
     closed-loop clients of 200 pods against a tight admission queue, with
     its unloaded critical baseline: no critical shed, some best_effort
-    sheds; (c) the slice's batch as one ``Solve`` RPC to
+    sheds; (c) the reference's batch as one ``Solve`` RPC to
     ``make_server(SolverService(...))`` on a unix socket from a raw
-    ``grpc`` stub: encode ms, bytes, RPC wall, ``solve_ms``, the slice's
-    plan, one ``price_step_scores`` launch per price iteration; (d)
+    ``grpc`` stub: encode ms, bytes, RPC wall, ``solve_ms``, the
+    reference's plan, one ``price_step_scores`` launch per price iteration; (d)
     ``device_hang@fence`` through a pipeline with admission on: the
     breaker opens, host-routes, half-opens and closes, then the
     ``hier_threshold`` knob moved at runtime routes a 25,000-pod batch
@@ -135,13 +146,13 @@ no result):
     loss;
 14. mesh — the device mesh and multi-process execution: (a) a
     ``torch.distributed`` job of world size 1 on nccl, ``make_mesh()``
-    over the card (shape (1, 1)) and the slice's limited 100,000-pod
-    batch through ``BatchScheduler(backend="auto", mesh=mesh)`` from
-    phase 4's node-name counter: hierarchical routing, every block wave
+    over the card (shape (1, 1)) and the reference's limited batch
+    through ``BatchScheduler(backend="auto", mesh=mesh)`` from the
+    reference's node-name counter: hierarchical routing, every block wave
     one slot-sharded dispatch, no ``mesh_serial`` flush, one
-    ``price_step_scores`` launch per price iteration, phase 4's plan node
-    for node, the limit held; its wall beside phase 4's; (b) eight virtual
-    shards on the card (``make_mesh(devices=["cuda:0"] * 8)``, shape
+    ``price_step_scores`` launch per price iteration, the reference's plan
+    node for node, the limit held; its wall beside the reference's; (b)
+    eight virtual shards on the card (``make_mesh(devices=["cuda:0"] * 8)``, shape
     (4, 2)) against the unmeshed path on ``cuda``: the sharded single
     solve of the 64-pod toy scenario and of the 10,000-pod bench scenario
     (NR >= 2048, C >= 512; equal node multisets and costs), 8 serving
@@ -163,11 +174,12 @@ no result):
     exhaustively, all ok, states / transitions / ms each; (c) the lock
     sanitizer installed (``sanitize.install()``): 12(a)'s closed-loop
     set-up at 8 and 32 clients (every tenant's plan equal to its solo
-    plan), then the slice's limited batch as one ``Solve`` RPC through
-    ``make_server`` over an ``auto`` scheduler from phase 4's node-name
-    counter while 8 gRPC clients keep sending: 0 ``SanitizerError``, 0
-    ``sanitizer_error`` flight dumps, every observed lock nesting in
-    ``LOCK_ORDER``'s order, phase 4's plan node for node, one
+    plan), then the reference's limited batch as one ``Solve`` RPC through
+    ``make_server`` over an ``auto`` scheduler from the reference's
+    node-name counter while 8 gRPC clients keep sending: 0
+    ``SanitizerError``, 0 ``sanitizer_error`` flight dumps, every observed
+    lock nesting in ``LOCK_ORDER``'s order, the reference's plan node for
+    node, one
     ``price_step_scores`` launch per price iteration, the clients' plans
     equal to 10(a)'s; then ``uninstall()``; (d) under the port's
     transition tap (``obs.protocol.recording()``), 13(c)'s wire delta
@@ -205,13 +217,13 @@ no result):
     flags are printed, not failed on, and a probe that raises fails the
     run;
 17. resilience — ``scripts/chaos_drive_torch.py`` on the card
-    (``backend="tpu"``): (a) ``run_chaos`` at 20 of its 60 steps and its
+    (``backend="tpu"``): (a) ``run_chaos`` at 12 of its 60 steps and its
     1,500 pods: the composed 8-kind ``KT_FAULTS`` schedule against a
     fault-free mirror, the four invariants (no silent divergence, mirror
     parity as a node partition, typed errors only, bounded recovery)
     asserted at every step, the faults injected by rule, re-establishes
     and parity-checked steps printed; (b) ``run_restart(snapshot=True)``
-    at 1,000 pods over 4 clients: the sidecar subprocess on the card SIGTERM'd mid-chain and relaunched
+    at 500 pods over 4 clients: the sidecar subprocess on the card SIGTERM'd mid-chain and relaunched
     on the card, 0 re-establishes, the restart wall, the relaunch's wait
     for health and the first post-restart delta times; (c)
     ``run_fleet(mode="kill")``: three replicas and the mirror on the card,
@@ -219,7 +231,24 @@ no result):
     steal adoptions >= orphans, the typed errors and one dead-endpoint
     warning per orphaned client.  Each prints the thread count at its
     start and end; no hand-written kernel launches, in process or in
-    either sidecar (each prints its counts at shutdown).
+    either sidecar (each prints its counts at shutdown);
+18. fuzz — ``scripts/fuzz_sweep_torch.py``'s runners on the card at cut
+    depth (:data:`FUZZ`): (a) the plain, existing-node and kubelet
+    suites, 6 seeds each, every seed solved on ``cuda`` and on ``cpu``
+    from one counter state (existing nodes named from 0, solves from
+    1000): equal plans or ``placements_tie``, the validator, the floor
+    and the per-seed ceiling against the port's oracle; per suite n,
+    mean, worst and the cuda solve wall p50 and max; (b) ``--delta``, 2
+    seeds x 4 steps, drawn on the card and replayed on the host from the
+    same inputs and counters: the same mode and plan at every step and
+    the same from-scratch re-solves; (c) ``--delta-wire``, 1 seed x 4
+    steps, likewise, over a real gRPC session; (d) ``--relax``,
+    ``--hier`` and ``--gang``, 2 seeds each: no problem on the card;
+    (e) one battle seed at 30 steps on ``backend="tpu"`` under the
+    installed lock sanitizer (uninstalled afterwards): every invariant
+    after every step, every node reaped, 0 ``SanitizerError``.  No fuzz
+    batch reaches the hierarchical threshold, so the phase launches no
+    hand-written kernel.
 
 After every phase but 11(c) and 12(d) the run checks that no device hang
 was counted, no solve was served degraded or host-routed by admission,
@@ -229,8 +258,8 @@ line).  Launch counts (the
 hand-written kernels', and the relax and screen programs' runs) are
 zeroed just before each path is driven and read just after; no
 hand-written kernel is on the relax, consolidation, repack,
-serving-request or delta path or 16(c)'s or 17's, so their kernel counts
-read 0 there (the
+serving-request or delta path or 16(c)'s, 17's or 18's, so their kernel
+counts read 0 there (the
 kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s, 14(a)'s,
 15(c)'s and 16(b)'s launches to the slice's; 16(b)'s one
 ``packed_scan_scores`` launch is the bench's own kernel-parity check).
@@ -242,6 +271,7 @@ run's wall seconds (``wall_s``).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -250,11 +280,19 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+
+# torch.profiler (the launch counts and busy shares below) leaves CUPTI
+# attached after a session unless told to tear it down, and every later
+# kernel launch of this launch-bound port then pays for it; the phases
+# after the first session ran slower for it
+# (``scripts/hier_cost_probe_torch.py``, PERF.md section 6)
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
 #: non-tensor-core float32 FLOP/s
@@ -328,6 +366,36 @@ def deployments(nd: int, per: int, tag: str = "h"):
     return pods
 
 
+#: the batch that the later paths' hierarchical solves take (phases 9(a),
+#: 10(b), 11(a), 12(c), 14(a) and 15(c)): 10 of the slice's 40
+#: deployments at its 2,500 pods each, routed hierarchically through
+#: :func:`hier_at`.  A block wave's time follows the deployments far more
+#: than the pods (``scripts/hier_cost_probe_torch.py``, PERF.md section
+#: 4), so the cut from 40 deployments is what brings the script inside its
+#: time limit; the slice keeps the whole 100,000.  Its cpu limit is
+#: the unconstrained buy itself (the slice's is 99% of it): the blocks
+#: still contend for it through every price iteration, and no pod is left
+#: infeasible, as none is in the slice, so 14(a) still binds and seats
+#: every pod.  13(a) keeps the slice's batch (ROADMAP C11)
+LATER_HIER = (10, 2500)
+LATER_HIER_LIMIT = 1.0
+
+
+@contextlib.contextmanager
+def hier_at(n_pods: int):
+    """Route batches of ``n_pods`` pods and more hierarchically while the
+    block runs (``KT_HIER_THRESHOLD``, read at each solve)."""
+    old = os.environ.get("KT_HIER_THRESHOLD")
+    os.environ["KT_HIER_THRESHOLD"] = str(n_pods)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("KT_HIER_THRESHOLD", None)
+        else:
+            os.environ["KT_HIER_THRESHOLD"] = old
+
+
 def provisioner(cpu_limit=None):
     from karpenter_tpu_torch.models.provisioner import Provisioner
 
@@ -356,10 +424,11 @@ def placements_tie(a, b) -> bool:
             == np.float32(sum(n.price for n in b.nodes)).tobytes())
 
 
-def limited_solve(device, pods, catalog):
-    """Unconstrained solve, then the solve under a cpu limit at 99% of what
-    it bought.  Returns (scheduler, tensors, limit, free, limited, stats,
-    limited-solve wall ms, launches per kernel in the limited solve)."""
+def limited_solve(device, pods, catalog, frac: float = 0.99):
+    """Unconstrained solve, then the solve under a cpu limit at ``frac``
+    (99%) of what it bought.  Returns (scheduler, tensors, limit, free,
+    limited, stats, limited-solve wall ms, launches per kernel in the
+    limited solve)."""
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.metrics import (
         GANG_DURATION,
@@ -374,7 +443,7 @@ def limited_solve(device, pods, catalog):
     check(bool(sched.hier_stats), "unconstrained solve did not route "
           "hierarchically")
     st, _ = sched._tensorize(pods, [provisioner()], catalog, (), None)
-    limit = round(cpu_bought(st, free.nodes) * 0.99, 1)
+    limit = round(cpu_bought(st, free.nodes) * frac, 1)
 
     hier_before = sched.registry.counter(HIER_SOLVES).get(
         {"path": "hierarchical"})
@@ -893,20 +962,13 @@ def phase_parity(nd: int, per: int):
 
     catalog = generate_catalog(full=True)
     pods = deployments(nd, per, tag="p")
-    old = os.environ.get("KT_HIER_THRESHOLD")
-    os.environ["KT_HIER_THRESHOLD"] = str(len(pods))
-    try:
-        runs = {}
+    runs = {}
+    with hier_at(len(pods)):
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
             (_s, _st, limit, _free, res, stats, _w, _l,
              _shipped) = limited_solve(dev, pods, catalog)
             runs[dev] = (limit, res, stats, time.perf_counter() - t0)
-    finally:
-        if old is None:
-            os.environ.pop("KT_HIER_THRESHOLD", None)
-        else:
-            os.environ["KT_HIER_THRESHOLD"] = old
     (lg, rg, sg, tg), (lc, rc, sc, tc) = runs["cuda"], runs["cpu"]
     equal = plan(rg) == plan(rc)
     tie = placements_tie(rg, rc)
@@ -919,6 +981,28 @@ def phase_parity(nd: int, per: int):
          nodes=[len(rg.nodes), len(rc.nodes)],
          cost=[rg.new_node_cost, rc.new_node_cost], seconds=[tg, tc],
          torch_threads=torch.get_num_threads())
+
+
+def phase_reference(nd: int, per: int):
+    """The plan the later paths' hierarchical solves are held to: the
+    limited solve of :data:`LATER_HIER`'s batch on the card, as the slice
+    solves its own.  Returns (tensors, stats, limit, result)."""
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+
+    catalog = generate_catalog(full=True)
+    pods = deployments(nd, per)
+    with hier_at(len(pods)):
+        (_s, st, limit, free, res, stats, wall_ms, launches,
+         shipped) = limited_solve(None, pods, catalog, LATER_HIER_LIMIT)
+    check(launches["price_step_score"] == stats["price_iters"] >= 1,
+          "the reference solve's price_step_score launches != its price "
+          "iterations")
+    emit("reference", pods=len(pods), groups=st.G, blocks=stats["blocks"],
+         price_iters=stats["price_iters"], wall_ms=wall_ms,
+         wave_ms=stats["wave_ms"], nodes=len(res.nodes),
+         cost=res.new_node_cost, infeasible=len(res.infeasible),
+         cpu_limit=limit, cpu_shipped=shipped, free_nodes=len(free.nodes))
+    return st, stats, limit, res
 
 
 # ---------------------------------------------------------------------------
@@ -1306,15 +1390,16 @@ def phase_consolidation():
 #: does not fit this script's time: the screen step runs at 5,000, the
 #: rest at these sizes, cut again (from 300 and 200) when phase 11 came in,
 #: the convergence again (from 150) when phase 12 came in and (from 100,
-#: then 60) when phase 17 did, and the one full reconcile again (from 200) when
-#: phase 16(c) came in (PERF.md §4); (c)'s cuda-vs-cpu parity runs at the
-#: convergence's size, its cuda run being (b)'s
-REPACK_SIZES = {"screen": 5000, "reconcile": 100, "converge": 40}
+#: then 60 and 40) when phase 17 did and (from 40) when phase 18 did, and
+#: the one full reconcile again (from 200) when phase 16(c) came in and
+#: (from 100) when phase 18 did (PERF.md §4); (c)'s cuda-vs-cpu parity runs
+#: at the convergence's size, its cuda run being (b)'s
+REPACK_SIZES = {"screen": 5000, "reconcile": 50, "converge": 20}
 
 
 def provision_through_controller(catalog, limit, pods):
-    """The slice's batch through ``ProvisioningController``: pods added to
-    a ``ClusterState`` under the slice's provisioner, reconcile, the
+    """A batch through ``ProvisioningController``: pods added to a
+    ``ClusterState`` under a provisioner at ``limit``, reconcile, the
     batching window passed, reconcile again.  Returns the state, the
     cloud, the scheduler, the result, the controller wall ms and the
     launch counts of that run."""
@@ -1351,8 +1436,8 @@ def provision_through_controller(catalog, limit, pods):
 
 
 def phase_controllers(slice_limit, slice_res, pods):
-    """(a) the slice's batch ``pods`` provisioned through the controller
-    under the slice's limit, against the slice's plan; on the repack
+    """(a) the reference's batch ``pods`` provisioned through the controller
+    under the reference's limit, against the reference's plan; on the repack
     fleet at the sizes of :data:`REPACK_SIZES`, (b) the consolidation
     evaluation's screen step, one full reconcile and the ladder to
     convergence, and (c) a fleet driven to convergence on ``cuda`` and on
@@ -1378,8 +1463,9 @@ def phase_controllers(slice_limit, slice_res, pods):
     t_phase = time.perf_counter()
 
     # (a) provisioning through the controller
-    state, cloud, sched, res, wall_ms, launches = \
-        provision_through_controller(catalog, slice_limit, pods)
+    with hier_at(len(pods)):
+        state, cloud, sched, res, wall_ms, launches = \
+            provision_through_controller(catalog, slice_limit, pods)
     reg = sched.registry
     stats = dict(sched.hier_stats)
     check(reg.counter(HIER_SOLVES).get({"path": "hierarchical"}) == 1,
@@ -1392,8 +1478,9 @@ def phase_controllers(slice_limit, slice_res, pods):
           "the controller's solve launched the price-row entry")
     equal = plan(res) == plan(slice_res)
     tie = placements_tie(res, slice_res)
-    check(equal or tie, "the controller's plan differs from the slice's")
-    # every pod of the plan bound to a node that exists (the slice's plan
+    check(equal or tie, "the controller's plan differs from the "
+          "reference's")
+    # every pod of the plan bound to a node that exists (the reference's plan
     # leaves none infeasible; a smaller batch may)
     faults = cluster_faults(state, cloud, unbound_ok=res.infeasible)
     check(not faults, f"the provisioned cluster is unsound: {faults[:5]}")
@@ -1507,11 +1594,12 @@ def phase_controllers(slice_limit, slice_res, pods):
 #: phase 10's sizes: the reference bench's widths (``measure_throughput``'s
 #: 32 clients x 320 pods, ``measure_warmstart``'s 20,000 pods, churn 8, 40
 #: steps); the constrained chain's step count is this script's choice (20,
-#: cut to 10 when phase 17 came in); the serial baseline solves the first
-#: ``serial`` requests alone (all 32, cut to 8 when phase 17 came in: each
-#: takes about 1 s on the card)
-SERVING = {"clients": 32, "flushes": (1, 8, 32), "serial": 8,
-           "ws_pods": 20_000, "churn": 8, "ws_steps": 40, "spread_steps": 10}
+#: cut to 10 when phase 17 came in and to 5 when phase 18 did); the serial
+#: baseline solves the first ``serial`` requests alone (all 32, cut to 8
+#: when phase 17 came in and to 4 when phase 18 did: each takes about 1 s
+#: on the card)
+SERVING = {"clients": 32, "flushes": (1, 8, 32), "serial": 4,
+           "ws_pods": 20_000, "churn": 8, "ws_steps": 40, "spread_steps": 5}
 
 
 def spread_deployment(tag: str, n: int):
@@ -1710,13 +1798,13 @@ def serving_megabatch(catalog):
 
 
 def serving_hier_flush(sched, solo, small, full, limit, slice_res):
-    """(b): the slice's 100,000-pod batch (full catalog, the slice's limit)
+    """(b): the reference's batch (full catalog, the reference's limit)
     in one flush beside 7 serving requests (small catalog, as in (a))."""
     import bench_torch as bt
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.metrics import HIER_SOLVES
 
-    big = deployments(40, 2500)
+    big = deployments(*LATER_HIER)
     clients = [bt._serving_pods(c) for c in range(7)]
     reqs = [dict(pods=big, provisioners=[provisioner(limit)],
                  instance_types=full)]
@@ -1730,7 +1818,7 @@ def serving_hier_flush(sched, solo, small, full, limit, slice_res):
     launches = {k.name: k.launches for k in kernels.ALL}
     stats = dict(sched.hier_stats)
     check(sched.registry.counter(HIER_SOLVES).get({"path": "hierarchical"})
-          == hier0 + 1, "the flush's 100,000-pod request did not route "
+          == hier0 + 1, "the flush's reference request did not route "
           "hierarchically")
     check(launches["price_step_score"] >= 1
           and launches["price_step_score"] == stats["price_iters"],
@@ -1903,7 +1991,7 @@ def serving_delta_constrained():
 
 def phase_serving(limit, slice_res):
     """Phase 10: (a) megabatch flushes at the reference bench's width, (b)
-    the slice's hierarchical request in a flush, (c) the bench's
+    the reference's hierarchical request in a flush, (c) the bench's
     unconstrained delta chain, (d) a constrained delta chain on ``cuda``
     and ``cpu``."""
     from karpenter_tpu_torch.models.catalog import generate_catalog
@@ -1913,8 +2001,10 @@ def phase_serving(limit, slice_res):
     sched, solo, mega = serving_megabatch(small)
     SOLO_PLANS[:] = [plan(r) for r in solo]
     emit("serving_megabatch", **mega)
-    launches, hier = serving_hier_flush(
-        sched, solo, small, generate_catalog(full=True), limit, slice_res)
+    with hier_at(LATER_HIER[0] * LATER_HIER[1]):
+        launches, hier = serving_hier_flush(
+            sched, solo, small, generate_catalog(full=True), limit,
+            slice_res)
     emit("serving_hier_flush", **hier)
     del sched, solo
     emit("serving_delta", **serving_delta_unconstrained(small))
@@ -1992,7 +2082,7 @@ def guard_clean(after: str) -> None:
          min_margin_s=min((b - w for b, w in calls), default=None))
 
 
-#: phase 11's sizes: the slice's 40 x 2,500 pods plus 32 gangs of 16
+#: phase 11's sizes: the reference's 10 x 2,500 pods plus 32 gangs of 16
 #: members (``bench_torch._gang_member``), and 1 paired latency sample
 #: for (b)'s ``measure_gang`` (the bench runs 9; cut to 3 when phase 16(c)
 #: came in and to 1 when phase 17 did, since each pair takes about 11 s
@@ -2042,17 +2132,19 @@ def gang_audit(res, gangs) -> dict:
 
 
 def gang_hier_100k():
-    """(a): the slice's 100,000 pods plus the gangs, limited, through
+    """(a): the reference's 25,000 pods plus the gangs, limited (at 99% of
+    this batch's own buy, as the slice), through
     ``BatchScheduler(backend="auto")`` on the card, from names at 1000 (a
     plan depends on the node-name counter through coalescing's order)."""
     from karpenter_tpu_torch.models.catalog import generate_catalog
 
     catalog = generate_catalog(full=True)
-    pods, gangs = gang_batch(40, 2500, GANGS["gangs"], GANGS["size"])
+    pods, gangs = gang_batch(*LATER_HIER, GANGS["gangs"], GANGS["size"])
     names_from()
     t0 = time.perf_counter()
-    (_sched, st, limit, free, res, stats, wall_ms, launches,
-     shipped) = limited_solve(None, pods, catalog)
+    with hier_at(len(pods)):
+        (_sched, st, limit, free, res, stats, wall_ms, launches,
+         shipped) = limited_solve(None, pods, catalog)
     check(launches["price_step_score"] >= 1
           and launches["price_step_score"] == stats["price_iters"],
           "gang-hier-100k: price_step_score launches != price iterations")
@@ -2094,21 +2186,14 @@ def gang_hier_parity(nd: int = 8, per: int = 250, n_gangs: int = 4):
 
     catalog = generate_catalog(full=True)
     pods, gangs = gang_batch(nd, per, n_gangs, tag="gp")
-    old = os.environ.get("KT_HIER_THRESHOLD")
-    os.environ["KT_HIER_THRESHOLD"] = str(len(pods))
-    try:
-        runs = {}
+    runs = {}
+    with hier_at(len(pods)):
         for dev in ("cuda", "cpu"):
             names_from()
             t0 = time.perf_counter()
             (_s, _st, limit, _free, res, stats, _w, _l,
              _shipped) = limited_solve(dev, pods, catalog)
             runs[dev] = (limit, res, stats, time.perf_counter() - t0)
-    finally:
-        if old is None:
-            os.environ.pop("KT_HIER_THRESHOLD", None)
-        else:
-            os.environ["KT_HIER_THRESHOLD"] = old
     (lg, rg, sg, tg), (lc, rc, _sc, tc) = runs["cuda"], runs["cpu"]
     audits = [gang_audit(r, gangs) for r in (rg, rc)]
     check(all(a["violations"] == 0 and a["untyped"] == 0 for a in audits),
@@ -2350,9 +2435,9 @@ def phase_gangs():
 
 #: phase 12's sizes: the reference bench's ``measure_throughput`` (32
 #: clients, 8 slots) and ``measure_overload`` (2 critical and 8
-#: best_effort clients of 200 pods), each window 2 s (the bench's 4 s, cut
-#: when phase 17 came in)
-SERVICE = {"clients": 32, "seconds": 2.0, "max_slots": 8,
+#: best_effort clients of 200 pods), each window 1 s (the bench's 4 s, cut
+#: to 2 s when phase 17 came in and to 1 s when phase 18 did)
+SERVICE = {"clients": 32, "seconds": 1.0, "max_slots": 8,
            "concurrency": (1, 8, 32), "critical": 2, "best_effort": 8,
            "overload_pods": 200, "hier_knob_pods": (10, 2500),
            "wire_trace_budget_s": 300.0}
@@ -2551,7 +2636,7 @@ def service_overload(catalog) -> dict:
 
 
 def service_wire(full, limit, slice_res):
-    """(c): the slice's 100,000-pod limited batch as one ``Solve`` RPC to
+    """(c): the reference's limited batch as one ``Solve`` RPC to
     the port's ``make_server(SolverService(...))`` on a unix socket, from
     a raw ``grpc`` unary stub with the server's 256 MiB message limits.
     The decoded plan against phase ``slice``'s.  Returns (launches, the
@@ -2572,7 +2657,7 @@ def service_wire(full, limit, slice_res):
     )
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
 
-    pods = deployments(40, 2500)
+    pods = deployments(*LATER_HIER)
     reg = Registry()
     # the per-RPC trace's anomaly budget: the reference's 30 s default is
     # sized for a sidecar's usual requests, and this one request runs
@@ -2745,7 +2830,7 @@ def service_breaker_hang(small, full) -> dict:
 
 def phase_service(limit, slice_res):
     """Phase 12: (a) closed-loop serving through ``SolvePipeline``, (b) the
-    4x overdrive with admission, (c) the slice's batch over gRPC, then,
+    4x overdrive with admission, (c) the reference's batch over gRPC, then,
     after the guard check, (d) an injected hang through the breaker and a
     runtime knob move.  Returns (c)'s kernel launches."""
     from karpenter_tpu_torch.models.catalog import generate_catalog
@@ -2755,7 +2840,8 @@ def phase_service(limit, slice_res):
     small, full = generate_catalog(full=False), generate_catalog(full=True)
     emit("service_pipeline", **service_pipeline(small))
     emit("service_overload", **service_overload(small))
-    launches, wire = service_wire(full, limit, slice_res)
+    with hier_at(LATER_HIER[0] * LATER_HIER[1]):
+        launches, wire = service_wire(full, limit, slice_res)
     emit("service_wire", **wire)
     guard_clean("service")
     # (d): hangs, degraded solves, host routing and the guard's warnings
@@ -3281,10 +3367,11 @@ def node_types(res) -> list:
 
 def mesh_hier_100k(limit, slice_stats, slice_res, slice_wall_ms):
     """(a): a world-size-1 ``torch.distributed`` job on nccl, ``make_mesh()``
-    over the card, and the slice's limited 100k solve through
-    ``BatchScheduler(backend="auto", mesh=mesh)`` from phase 4's name
-    counter: hierarchical routing, every block wave a sharded megabatch,
-    one ``price_step_scores`` launch per price iteration, phase 4's plan."""
+    over the card, and the reference's limited solve through
+    ``BatchScheduler(backend="auto", mesh=mesh)`` from the reference's
+    name counter: hierarchical routing, every block wave a sharded megabatch,
+    one ``price_step_scores`` launch per price iteration, the reference's
+    plan."""
     import torch
     import torch.distributed as dist
 
@@ -3307,7 +3394,7 @@ def mesh_hier_100k(limit, slice_stats, slice_res, slice_wall_ms):
         check(mesh.shape == {"pods": 1, "types": 1},
               f"make_mesh() over one card gave {mesh.shape}")
         catalog = generate_catalog(full=True)
-        pods = deployments(40, 2500)
+        pods = deployments(*LATER_HIER)
         sched = BatchScheduler(backend="auto", mesh=mesh,
                                registry=Registry())
         sharded = []
@@ -3332,7 +3419,7 @@ def mesh_hier_100k(limit, slice_stats, slice_res, slice_wall_ms):
         shipped = cpu_bought(st, res.nodes)
         check(sched.registry.counter(HIER_SOLVES).get(
             {"path": "hierarchical"}) == 1,
-              "the meshed 100k solve did not route hierarchically")
+              "the meshed solve did not route hierarchically")
         check(len(sharded) == stats["dispatches"] and sharded,
               f"{len(sharded)} sharded dispatches for "
               f"{stats['dispatches']} block waves")
@@ -3344,13 +3431,13 @@ def mesh_hier_100k(limit, slice_stats, slice_res, slice_wall_ms):
         check(launches["packed_score"] == 0,
               "the meshed path launched the price-row entry")
         check(plan(res) == plan(slice_res),
-              "the meshed 100k plan differs from phase 4's")
+              "the meshed plan differs from the reference's")
         check(shipped <= limit * (1.0 + 1e-6) and not res.infeasible,
-              "the meshed 100k solve broke the limit or left pods out")
+              "the meshed solve broke the limit or left pods out")
         return launches, dict(
             backend=backend, mesh=mesh.shape,
             signature=[list(x) for x in mesh_signature(mesh)],
-            wall_ms=wall_ms, slice_wall_ms=slice_wall_ms,
+            wall_ms=wall_ms, reference_wall_ms=slice_wall_ms,
             blocks=stats["blocks"], waves=stats["waves"],
             dispatches=stats["dispatches"], padded_slots=sharded,
             price_iters=stats["price_iters"], wave_ms=stats["wave_ms"],
@@ -3501,12 +3588,13 @@ def mesh_two_processes():
 
 
 def phase_mesh(limit, slice_stats, slice_res, slice_wall_ms):
-    """Phase 14: (a) the meshed 100k solve, (b) virtual shards on one
+    """Phase 14: (a) the meshed reference solve, (b) virtual shards on one
     card, (c) two processes on the card.  Returns (a)'s kernel launches."""
     t_phase = time.perf_counter()
     PHASE[0] = "mesh"
-    launches, real = mesh_hier_100k(limit, slice_stats, slice_res,
-                                    slice_wall_ms)
+    with hier_at(LATER_HIER[0] * LATER_HIER[1]):
+        launches, real = mesh_hier_100k(limit, slice_stats, slice_res,
+                                        slice_wall_ms)
     emit("mesh_hier_100k", **real)
     emit("mesh_virtual_8", **mesh_virtual_8())
     emit("mesh_two_processes", **mesh_two_processes(),
@@ -3521,7 +3609,7 @@ def phase_mesh(limit, slice_stats, slice_res, slice_wall_ms):
 # ---------------------------------------------------------------------------
 
 #: phase 15's sizes: (a)/(b) the CLI over the checkout; (c) 12(a)'s
-#: closed-loop set-up at 8 and 32 clients, then the slice's batch over
+#: closed-loop set-up at 8 and 32 clients, then the reference's batch over
 #: gRPC beside 8 clients; (d) 13(c)'s wire chain plus a session closed
 #: and re-established; (c)'s windows 2 s (4 s, cut when phase 17 came in)
 ANALYSIS = {"concurrency": (8, 32), "seconds": 2.0, "wire_clients": 8,
@@ -3590,10 +3678,10 @@ def analysis_model() -> dict:
 def analysis_sanitized(full, limit, slice_stats, slice_res):
     """(c): ``sanitize.install()``, then 12(a)'s closed-loop set-up at 8
     and 32 clients (an 8-slot ``SolvePipeline`` over ``backend="tpu"``)
-    and the slice's limited batch as one ``Solve`` RPC through
+    and the reference's limited batch as one ``Solve`` RPC through
     ``make_server`` (over ``backend="auto"``, admission on) while 8
     clients keep sending to it; every ``SanitizerError`` constructed is
-    counted.  Returns (the 100k RPC's kernel launches, the phase's
+    counted.  Returns (the reference RPC's kernel launches, the phase's
     fields)."""
     import tempfile
     import threading
@@ -3677,7 +3765,7 @@ def analysis_sanitized(full, limit, slice_stats, slice_res):
                 p99_ms=percentile(lat, 0.99) * 1e3,
                 plans_equal_solo=sum(equal))
 
-        # the slice's batch over the wire beside 8 closed-loop clients,
+        # the reference's batch over the wire beside 8 closed-loop clients,
         # through the service's own pipeline (admission on) over an
         # ``auto`` scheduler, as phase 4 solved it (its guard threads run
         # every device call)
@@ -3723,7 +3811,7 @@ def analysis_sanitized(full, limit, slice_stats, slice_res):
                 f"/{RPC_SERVICE}/Solve",
                 request_serializer=pb.SolveRequest.SerializeToString,
                 response_deserializer=pb.SolveResponse.FromString)
-            req = codec.encode_request(deployments(40, 2500),
+            req = codec.encode_request(deployments(*LATER_HIER),
                                        [provisioner(limit)], full)
             while min(served) == 0 and not errors:
                 time.sleep(0.05)  # every client is sending
@@ -3762,7 +3850,7 @@ def analysis_sanitized(full, limit, slice_stats, slice_res):
     check(not inverted, f"observed lock edges invert LOCK_ORDER: "
           f"{inverted}")
     check(reg.counter(HIER_SOLVES).get({"path": "hierarchical"})
-          == hier0 + 1, "the sanitized 100k RPC did not route "
+          == hier0 + 1, "the sanitized reference RPC did not route "
           "hierarchically")
     check(launches["price_step_score"] == stats["price_iters"] >= 1,
           f"price_step_score launched {launches['price_step_score']} "
@@ -3771,11 +3859,11 @@ def analysis_sanitized(full, limit, slice_stats, slice_res):
           "the sanitized path launched the price-row entry")
     equal = plan(res) == plan(slice_res)
     tie = placements_tie(res, slice_res)
-    check(equal or tie, "the sanitized 100k plan differs from phase 4's")
+    check(equal or tie, "the sanitized plan differs from the reference's")
     wire_equal = [plan(r) == solo[ci] for ci, r in enumerate(last_wire)
                   if r is not None]
     check(len(wire_equal) == n_wire and all(wire_equal),
-          "a wire client's plan beside the 100k RPC differs from its solo "
+          "a wire client's plan beside the reference RPC differs from its solo "
           "plan")
     return launches, dict(
         lock_order_entries=len(sanitize.LOCK_ORDER), warm_s=warm_s,
@@ -3865,7 +3953,7 @@ def analysis_conformance() -> dict:
 
 def phase_analysis(full, limit, slice_stats, slice_res):
     """Phase 15: (a) ktlint and the lock order, (b) the protocol models,
-    (c) the sanitized serving stack with the 100k RPC, (d) trace
+    (c) the sanitized serving stack with the reference RPC, (d) trace
     conformance of the wire delta chain.  Returns (c)'s kernel
     launches."""
     t_phase = time.perf_counter()
@@ -3875,12 +3963,13 @@ def phase_analysis(full, limit, slice_stats, slice_res):
         lint, model = pool.submit(analysis_lint), pool.submit(analysis_model)
         emit("analysis_lint", **lint.result())
         emit("analysis_model", **model.result())
-    # the 8 clients' requests wait behind the 100k RPC in the admission
+    # the 8 clients' requests wait behind the reference RPC in the admission
     # queue, so the brownout ladder may step (a logged warning) and
     # recover; any other trapped warning fails the run
     n_faults = len(FAULTS.records)
-    launches, sanitized = analysis_sanitized(full, limit, slice_stats,
-                                             slice_res)
+    with hier_at(LATER_HIER[0] * LATER_HIER[1]):
+        launches, sanitized = analysis_sanitized(full, limit, slice_stats,
+                                                 slice_res)
     trapped = FAULTS.records[n_faults:]
     check(all(r.startswith("karpenter_tpu_torch.admission.brownout: "
                            "brownout ") for r in trapped),
@@ -4034,12 +4123,14 @@ def phase_bench():
 # ---------------------------------------------------------------------------
 
 
-#: phase 17's sizes: (a) the chaos run at 20 of the driver's 60 steps and
-#: its 1,500 pods (cut to 30, then to 20 to keep the script inside its
-#: time); (b) the restart at 1,000 pods over the driver's 4 clients (its
-#: 4,000 cut: the bench runs them); (c) the driver's defaults (3 replicas,
-#: 6 clients of 200 pods)
-RESILIENCE = {"chaos_steps": 20, "chaos_pods": 1500, "restart_pods": 1000}
+#: phase 17's sizes: (a) the chaos run at 12 of ``run_chaos``'s 60 steps
+#: and its 1,500 pods (cut to 30, then to 20 to keep the script inside its
+#: time, and to 12 when phase 18 came in: every fault of the schedule
+#: still falls inside them); (b) the restart at 500 pods over
+#: ``run_restart``'s 4 clients (its 4,000 cut to 1,000, and to 500 when
+#: phase 18 came in: the bench runs them); (c) ``run_fleet``'s defaults (3
+#: replicas, 6 clients of 200 pods)
+RESILIENCE = {"chaos_steps": 12, "chaos_pods": 1500, "restart_pods": 500}
 
 
 def _threads(fn):
@@ -4163,6 +4254,159 @@ def phase_resilience():
     return {name: launches[name] + children[name] for name in launches}
 
 
+#: phase 18's depth: seeds per suite, (seeds, steps) of the delta and
+#: wire chains, seeds of the relax / hierarchical / gang sweeps, steps of
+#: the sanitized battle seed (the script's defaults are 40; 12 x 4;
+#: 10 x 4; 25, 12, 20; the reference's battletest takes 120 steps)
+FUZZ = {"suite_seeds": 6, "delta": (2, 4), "wire": (1, 4), "relax": 2,
+        "hier": 2, "gang": 2, "battle_steps": 30}
+
+
+def _problems(records, what: str) -> None:
+    bad = {r["seed"]: r["problems"] for r in records if r.get("problems")}
+    check(not bad, f"{what}: {bad}")
+
+
+def fuzz_suites() -> dict:
+    """18(a): each suite's seeds solved on the card and on the host from
+    one counter state (existing nodes named from 0, solves from 1000):
+    equal plans or ``placements_tie``, the validator, the floor and the
+    per-seed ceiling against the port's oracle on the card's plans."""
+    from scripts import fuzz_sweep_torch as fz
+
+    out = {}
+    for suite in ("plain", "existing", "kubelet"):
+        run = {dev: fz.run_suite(suite, FUZZ["suite_seeds"], device=dev,
+                                 reset_names=True, verbose=False)
+               for dev in (None, "cpu")}
+        cuda, cpu = run[None], run["cpu"]
+        check(cuda["device"].startswith("cuda"), f"{suite} ran on "
+              f"{cuda['device']}")
+        _problems(cuda["records"], f"fuzz {suite} on the card")
+        ties = 0
+        for a, b in zip(cuda["records"], cpu["records"]):
+            if a.get("skipped"):
+                continue
+            check(fz.same_plan(a["result"], b["result"]),
+                  f"fuzz {suite} seed {a['seed']}: cuda and cpu plans "
+                  "differ")
+            ties += fz.plan(a["result"]) != fz.plan(b["result"])
+            check(a["ratio"] is None or a["ratio"] <= a["ceiling"] + 1e-9,
+                  f"fuzz {suite} seed {a['seed']}: per-pod ratio "
+                  f"{a['ratio']} over {a['ceiling']}")
+        out[suite] = dict(n=cuda["n"], mean=cuda["mean"],
+                          worst=cuda["worst"],
+                          seeds=fz.summary(cuda["records"]),
+                          cuda_solve=fz.walls(cuda["records"]),
+                          cpu_solve=fz.walls(cpu["records"]),
+                          placements_ties=ties)
+    return out
+
+
+def fuzz_chains(runner, seeds: int, steps: int, what: str) -> dict:
+    """18(b)/(c): chains drawn on the card, replayed on the host from the
+    same inputs and counter states: the same mode (or epoch) and plan at
+    every step, the same from-scratch re-solves."""
+    from scripts import fuzz_sweep_torch as fz
+
+    cuda = runner(seeds, steps, device=None, verbose=False)
+    cpu = runner(seeds, steps, device="cpu", replay=cuda, verbose=False)
+    _problems(cuda, f"{what} on the card")
+    checked = 0
+    for a, b in zip(cuda, cpu):
+        check(fz.same_plan(a["base"]["result"], b["base"]["result"]),
+              f"{what} seed {a['seed']}: base plans differ")
+        for i, (x, y) in enumerate(zip(a["steps"], b["steps"])):
+            check(x["mode"] == y["mode"]
+                  and fz.same_plan(x["result"], y["result"])
+                  and fz.same_plan(x["full"], y["full"]),
+                  f"{what} seed {a['seed']} step {i}: cuda {x['mode']} "
+                  f"${x['cost']} vs cpu {y['mode']} ${y['cost']}")
+            checked += 1
+    return dict(seeds=[r["seed"] for r in cuda], steps_checked=checked,
+                modes=[r["modes"] for r in cuda],
+                costs=[[s["cost"] for s in r["steps"]] for r in cuda],
+                device=cuda[0]["device"])
+
+
+def fuzz_battle() -> dict:
+    """18(e): one battle seed on ``backend="tpu"`` on the card under the
+    installed lock sanitizer, every ``SanitizerError`` constructed
+    counted; the sanitizer uninstalled afterwards."""
+    from karpenter_tpu_torch.analysis import sanitize
+    from scripts import fuzz_sweep_torch as fz
+
+    raised: list = []
+    base_error = sanitize.SanitizerError
+
+    class CountedSanitizerError(base_error):
+        def __init__(self, *args):
+            raised.append(str(args[0]) if args else "")
+            super().__init__(*args)
+
+    sanitize.SanitizerError = CountedSanitizerError
+    sanitize.install()
+    try:
+        out = fz.run_battle(0, steps=FUZZ["battle_steps"], backend="tpu",
+                            device=fz._device(None))
+    finally:
+        sanitize.uninstall()
+        sanitize.SanitizerError = base_error
+    check(out["device"].startswith("cuda"), f"battle ran on {out['device']}")
+    check(not out["problems"], f"battle: {out['problems'][:5]}")
+    check(out["reaped"], f"battle: {out['nodes_left']} nodes never reaped")
+    check(not raised, f"{len(raised)} SanitizerError: {raised[:3]}")
+    out.pop("snapshots")
+    return dict(out, sanitizer_errors=len(raised))
+
+
+def phase_fuzz():
+    """Phase 18: ``scripts/fuzz_sweep_torch.py``'s runners on the card —
+    (a) the suites, (b) delta chains, (c) a wire chain, (d) relax,
+    hierarchical and gang seeds, (e) a sanitized battle seed.  Kernel
+    counts zeroed just before and read just after; no fuzz scenario
+    reaches the hierarchical threshold, so they read 0.  Returns them."""
+    from karpenter_tpu_torch import kernels
+    from scripts import fuzz_sweep_torch as fz
+
+    t_phase = time.perf_counter()
+    PHASE[0] = "fuzz"
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    emit("fuzz_suites", **fuzz_suites(), wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    emit("fuzz_delta", **fuzz_chains(fz.run_delta_chains, *FUZZ["delta"],
+                                     "delta"),
+         wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    emit("fuzz_delta_wire", **fuzz_chains(fz.run_delta_wire_chains,
+                                          *FUZZ["wire"], "delta-wire"),
+         wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sweeps = {}
+    for mode, runner in (("relax", fz.run_relax_seeds),
+                         ("hier", fz.run_hier_seeds),
+                         ("gang", fz.run_gang_seeds)):
+        t1 = time.perf_counter()
+        recs = runner(FUZZ[mode], device=None, verbose=False)
+        _problems(recs, f"{mode} on the card")
+        check(all(r["device"].startswith("cuda") for r in recs
+                  if not r.get("skipped")), f"{mode} ran off the card")
+        sweeps[mode] = dict(fz.summary(recs), wall_s=time.perf_counter() - t1)
+        if mode == "relax":
+            sweeps[mode]["outcomes"] = [r.get("outcome", r.get("skipped"))
+                                        for r in recs]
+    emit("fuzz_sweeps", **sweeps, wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    emit("fuzz_battle", **fuzz_battle(), phase_wall_s=time.perf_counter() - t0)
+    launches = kernels.counts()
+    check(not any(launches.values()),
+          f"a hand-written kernel launched on a fuzz path: {launches}")
+    emit("fuzz", launches=launches, phase_s=time.perf_counter() - t_phase)
+    guard_clean("fuzz")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4200,20 +4444,23 @@ def main() -> int:
                                                     40, 2500)
         timing = run("timing", phase_timing, st, stats)
         run("parity", phase_parity, 8, 250)
+        ref_st, ref_stats, ref_limit, ref_res = run(
+            "reference", phase_reference, *LATER_HIER)
         run("relax", phase_relax)
         run("consolidation", phase_consolidation)
-        run("controllers", phase_controllers, limit, slice_res,
-            deployments(40, 2500))
-        flush_launches = run("serving", phase_serving, limit, slice_res)
+        run("controllers", phase_controllers, ref_limit, ref_res,
+            deployments(*LATER_HIER))
+        flush_launches = run("serving", phase_serving, ref_limit, ref_res)
         gang_launches = phase_gangs()
-        service_launches = phase_service(limit, slice_res)
+        service_launches = phase_service(ref_limit, ref_res)
         operator_launches = phase_operator(st, limit, slice_res)
-        mesh_launches = phase_mesh(limit, stats, slice_res,
-                                   RECORD["slice"]["wall_ms"])
+        mesh_launches = phase_mesh(ref_limit, ref_stats, ref_res,
+                                   RECORD["reference"]["wall_ms"])
         analysis_launches = phase_analysis(generate_catalog(full=True),
-                                           limit, stats, slice_res)
+                                           ref_limit, ref_stats, ref_res)
         bench_launches = phase_bench()
         resilience_launches = phase_resilience()
+        fuzz_launches = phase_fuzz()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4227,7 +4474,7 @@ def main() -> int:
                      + gang_launches[name] + service_launches[name]
                      + operator_launches[name] + mesh_launches[name]
                      + analysis_launches[name] + bench_launches[name]
-                     + resilience_launches[name]),
+                     + resilience_launches[name] + fuzz_launches[name]),
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],
@@ -4240,6 +4487,10 @@ def main() -> int:
         ("price_step_score", kernels.PRICE_STEP_SCORE, "step"))]}
     RECORD["kernels"] = table["kernels"]
     RECORD["wall_s"] = time.perf_counter() - t_start
+    # what is left running when the script returns: non-daemon threads
+    # hold the interpreter's exit until they end
+    emit("exit", threads=sorted(f"{t.name}{'' if t.daemon else ' (non-daemon)'}"
+                                for t in threading.enumerate()))
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

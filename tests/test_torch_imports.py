@@ -1,6 +1,6 @@
 """The port stands alone: every ``karpenter_tpu_torch`` module,
 ``chip_smoke.py`` with the scripts it drives (the multihost dryrun, the
-chaos and replay drivers), and the benchmark entry points
+chaos and replay drivers, the fuzz sweep), and the benchmark entry points
 ``bench_torch.py`` and ``bench_all_torch.py`` import with JAX,
 ml_dtypes, the reference package and the reference's benchmarks BLOCKED
 (a meta-path finder refusing ``jax``, ``jaxlib``, ``ml_dtypes``,
@@ -32,10 +32,12 @@ MODULES = sorted(
     m.name for m in pkgutil.walk_packages(
         karpenter_tpu_torch.__path__, prefix="karpenter_tpu_torch."))
 #: the port's scripts outside the package (``chip_smoke.py`` drives them;
-#: the benchmark entry points; the chaos and replay drivers)
+#: the benchmark entry points; the chaos and replay drivers; the fuzz
+#: sweep; the hierarchical-solve cost probe)
 SCRIPTS = ["chip_smoke", "scripts.dryrun_multihost_torch", "bench_torch",
            "bench_all_torch", "scripts.chaos_drive_torch",
-           "scripts.replay_traffic_torch"]
+           "scripts.replay_traffic_torch", "scripts.fuzz_sweep_torch",
+           "scripts.hier_cost_probe_torch"]
 
 _PROBE = r"""
 import importlib, json, sys
