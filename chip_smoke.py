@@ -248,7 +248,30 @@ no result):
     installed lock sanitizer (uninstalled afterwards): every invariant
     after every step, every node reaped, 0 ``SanitizerError``.  No fuzz
     batch reaches the hierarchical threshold, so the phase launches no
-    hand-written kernel.
+    hand-written kernel;
+19. tools — the repo-level tools on the card, at depth :data:`TOOLS`:
+    (a) ``scripts/profile_solve_torch.py``'s measured solve of config 2
+    (50,000 pods, ``BatchScheduler(backend="auto")``; tensorize tiers, the
+    process's first solve, 1 repeat, one solve under ``torch.profiler``:
+    top kernels, launches, device ms and busy share, the stage table) and
+    the host-clock stage table of the hierarchical demo's contended batch
+    (8 x 1,250 pods under a cpu limit at 99% of the free buy, the whole
+    solve routed hierarchically): the named stages cover at least 90% of
+    each solve's wall (config 2's unprofiled and profiled), and every
+    price iteration launches ``price_step_scores`` once; (b)
+    ``scripts/hier_demo_torch.py``: its
+    lines, its contended solve's plan equal to the same batch solved on
+    ``cpu`` from the same node-name counter, one ``price_step_scores``
+    launch per price iteration; its 1M model's 250 ms verdict is printed
+    as a flag, not failed on; (c) ``scripts/slo_demo_torch.py`` on
+    ``backend="tpu"``: best_effort sheds and burns, critical's
+    availability does not breach, critical's latency verdict printed
+    beside its p99 and the 250 ms objective; (d)
+    ``scripts/fleet_trace_demo_torch.py``: three replicas on the card, the
+    session's home hard-killed, one journey of at least 3 hops over at
+    least 2 replicas, every later hop's ``parent_hop`` 0.  A ``guard``
+    line follows each of (a)–(d).  ``scripts/tune_demo_torch.py`` is not
+    run here: 16(c)'s ``measure_tuning`` drives the same replicas.
 
 After every phase but 11(c) and 12(d) the run checks that no device hang
 was counted, no solve was served degraded or host-routed by admission,
@@ -261,7 +284,7 @@ hand-written kernel is on the relax, consolidation, repack,
 serving-request or delta path or 16(c)'s, 17's or 18's, so their kernel
 counts read 0 there (the
 kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s, 14(a)'s,
-15(c)'s and 16(b)'s launches to the slice's; 16(b)'s one
+15(c)'s, 16(b)'s and 19's launches to the slice's; 16(b)'s one
 ``packed_scan_scores`` launch is the bench's own kernel-parity check).
 The last two lines are the kernel table (``{"kernels": [...]}``) and
 ``{"ok": true, "device": {...}}``; the ``nvidia-smi`` line precedes them.
@@ -4407,6 +4430,212 @@ def phase_fuzz():
     return launches
 
 
+
+#: phase 19's depth: the measured solve's repeats (the script's default
+#: is 5; 2 until phase 19 ran over its 60 s), and the hierarchical stage
+#: table on its host walls only (its profiled solve, whose profiler stop
+#: and event walk took 23 s on a slow card machine, is the script's
+#: ``--hier-solve`` run)
+TOOLS = {"repeats": 1, "hier_solve": True, "hier_profiled": False}
+#: the share of each profiled solve's wall the named stages must cover
+STAGE_COVERAGE = 0.9
+
+
+def _stage_summary(table: dict) -> dict:
+    """A stage table's coverage and its rows, each with its wall (the
+    unprofiled run's and the profiled one's), launches, kernel ms, busy
+    share and longest idle stretch."""
+    return {k: table[k] for k in (
+        "wall_ms", "profiled_wall_ms", "covered", "profiled_covered",
+        "launches", "device_ms", "device_busy", "attributed_by",
+        "clock_check_ms", "stages") if k in table}
+
+
+def tools_profile() -> dict:
+    """19(a): ``scripts/profile_solve_torch.py`` on config 2 (50,000 pods)
+    with :data:`TOOLS`' repeats, and the stage table of the hierarchical
+    demo's contended batch: the solves on the card, config 2's profiled
+    launches counted, the named stages covering :data:`STAGE_COVERAGE` of
+    each wall, the hierarchical solve's price iterations each launching
+    ``price_step_scores`` once."""
+    from scripts import profile_solve_torch as ps
+
+    sink: dict = {}
+    doc = ps.measure_solve(None, repeats=TOOLS["repeats"], trace_dir=None,
+                           hier_solve=TOOLS["hier_solve"], sink=sink,
+                           hier_profiled=TOOLS["hier_profiled"])
+    check(doc["device"].startswith("cuda"), f"profiled on {doc['device']}")
+    check(doc["launches"] > 0, "the profiled config-2 solve launched no "
+          "CUDA kernel")
+    check(doc["infeasible"] == 0, f"config 2 left {doc['infeasible']} pods "
+          "infeasible")
+    tables = {"config2": doc["stages"]}
+    if TOOLS["hier_solve"]:
+        hs = doc["hier_solve"]
+        tables["hier"] = hs
+        stats, launches = sink["hier_stats"], sink["hier_launches"]
+        check(stats.get("price_iters", 0) >= 1,
+              f"the hierarchical solve ran no price iteration: {stats}")
+        check(launches["price_step_score"] == stats["price_iters"]
+              and launches["packed_score"] == 0,
+              f"{launches} for {stats['price_iters']} price iterations")
+    for name, table in tables.items():
+        for key in ("covered", "profiled_covered"):
+            if key not in table:
+                continue
+            check(table[key] >= STAGE_COVERAGE,
+                  f"{name}: the named stages cover {table[key]} of the "
+                  f"wall ({key}), under {STAGE_COVERAGE}")
+    out = {k: doc[k] for k in (
+        "device", "gpu", "pods", "backend", "tunnel_rtt_ms", "tensorize_ms",
+        "tensorize_cold_ms", "tensorize_steady_ms", "tensorize_steady_tier",
+        "tensorize_shape_hit_ms", "tensorize_shape_tier", "first_call_ms",
+        "solve_ms", "launches", "copies", "device_ms", "device_busy",
+        "top_kernels", "nodes", "infeasible")}
+    out["stages"] = _stage_summary(doc["stages"])
+    if TOOLS["hier_solve"]:
+        out["hier_solve"] = dict(
+            _stage_summary(hs), **{k: hs[k] for k in (
+                "pods", "limit_cpu", "blocks", "waves", "price_iters",
+                "repair_pods", "tail_repack_pods", "nodes", "infeasible",
+                "kernel_launches")})
+    return out
+
+
+def tools_hier_demo() -> dict:
+    """19(b): ``scripts/hier_demo_torch.py`` on the card: its lines, its
+    contended solve's plan against the same batch solved with
+    ``device="cpu"`` from the same node-name counter, one
+    ``price_step_scores`` launch per price iteration; the 250 ms verdict
+    of its 1M model printed as a flag."""
+    from scripts import fuzz_sweep_torch as fz
+    from scripts import hier_demo_torch as hd
+
+    t0 = time.perf_counter()
+    run = hd.run(device=None)
+    card_s = time.perf_counter() - t0
+    check(not run["aborted"], "the hierarchical demo fell back to flat")
+    check(run["device"].startswith("cuda"), f"demo ran on {run['device']}")
+    stats, launches = run["stats"], run["launches"]
+    check(stats["price_iters"] >= 1, f"no price iteration: {stats}")
+    check(launches["price_step_score"] == stats["price_iters"]
+          and launches["packed_score"] == 0,
+          f"{launches} for {stats['price_iters']} price iterations")
+    t0 = time.perf_counter()
+    cpu, cpu_stats = hd.contended("cpu", run["pods"], run["limit_cpu"],
+                                  run["names_at"])
+    cpu_s = time.perf_counter() - t0
+    check(fz.same_plan(run["result"], cpu),
+          f"the card's contended plan ({len(run['result'].nodes)} nodes, "
+          f"${run['result'].new_node_cost}) differs from the host's "
+          f"({len(cpu.nodes)} nodes, ${cpu.new_node_cost})")
+    check(cpu_stats["price_iters"] == stats["price_iters"],
+          f"{stats['price_iters']} price iterations on the card, "
+          f"{cpu_stats['price_iters']} on the host")
+    res = run["result"]
+    model = run["model"]
+    return dict(
+        partition=run["partition"], limit_cpu=run["limit_cpu"],
+        blocks=stats["blocks"], waves=stats["waves"],
+        dispatches=stats["dispatches"], price_iters=stats["price_iters"],
+        repair_pods=stats["repair_pods"],
+        tail_repack_pods=stats["tail_repack_pods"],
+        total_ms=stats["total_ms"], wave_ms=stats["wave_ms"],
+        score_ms=stats["score_ms"], repair_ms=stats["repair_ms"],
+        nodes=len(res.nodes), cost=res.new_node_cost,
+        infeasible=len(res.infeasible), launches=launches,
+        plan_equal=fz.plan(res) == fz.plan(cpu),
+        placements_tie=fz.plan(res) != fz.plan(cpu),
+        model=model, verdict=run["verdict"],
+        flag=None if run["verdict"] == "PASS" else (
+            f"modeled 1M wall {model['total_ms']} ms over "
+            f"{hd.HIER_BUDGET_MS} ms"),
+        card_s=card_s, cpu_replay_s=cpu_s)
+
+
+def tools_slo_demo() -> dict:
+    """19(c): ``scripts/slo_demo_torch.py`` on the card: best_effort sheds
+    and burns, critical's availability does not breach; critical's
+    latency verdict printed beside its p99 and the objective's target."""
+    from scripts import slo_demo_torch as slo
+
+    report, doc = slo.run(backend="tpu", device=None)
+    classes, fast = doc["classes"], doc["config"]["fast_burn"]
+    be, crit = classes["best_effort"], classes["critical"]
+    verdicts = {cls: {obj: slo.objective_verdict(info[obj], fast)
+                      for obj in ("availability", "latency")}
+                for cls, info in classes.items()}
+    check(be["availability"]["lifetime"]["bad"] > 0
+          and be["verdict"] in ("warn", "breach"),
+          f"best_effort did not shed and burn: {verdicts['best_effort']}, "
+          f"bad {be['availability']['lifetime']['bad']}")
+    check(verdicts["critical"]["availability"] != "breach",
+          f"critical breached its availability: {verdicts['critical']}")
+    check(report["outcomes"].get("error", 0) == 0,
+          f"replay errors: {report['outcomes']}")
+    return dict(outcomes=report["outcomes"],
+                verdicts={c: i["verdict"] for c, i in classes.items()},
+                objectives=verdicts,
+                reference_rule_holds=slo.split_holds(doc),
+                critical_p99_ms=slo.critical_p99_ms(report),
+                critical_latency_bad=crit["latency"]["lifetime"]["bad"],
+                critical_latency_total=crit["latency"]["lifetime"]["total"],
+                latency_target_ms=doc["config"]["p99_ms"],
+                occupancy=doc["occupancy"])
+
+
+def tools_fleet_demo() -> dict:
+    """19(d): ``scripts/fleet_trace_demo_torch.py`` on the card: one
+    journey of at least 3 hops over at least 2 replicas, every later hop
+    linked under the first.  The hard kill leaves each client whose home
+    died one dead-endpoint warning, which is expected here."""
+    from scripts import fleet_trace_demo_torch as fd
+
+    n_faults = len(FAULTS.records)
+    out = fd.run(backend="tpu", device=None, verbose=False)
+    trapped = FAULTS.records[n_faults:]
+    check(all(r.startswith("karpenter_tpu_torch.service.client: fleet "
+                           "endpoint ") and r.endswith("-> dead")
+              for r in trapped), f"unexpected warnings: {trapped}")
+    del FAULTS.records[n_faults:]
+    check(out["device"].startswith("cuda"), f"replicas on {out['device']}")
+    check(out["ok"], f"the journey did not assemble: {out['journey']}")
+    journey = out["journey"]
+    return dict(ok=out["ok"], victim=out["victim"],
+                served_after_kill=out["served_after_kill"],
+                full_resends=out["full_resends"],
+                n_hops=journey["n_hops"],
+                replicas=sorted({h["replica"] for h in journey["hops"]}),
+                parent_hops=[h["parent_hop"] for h in journey["hops"]],
+                dead_endpoint_warnings=len(trapped))
+
+
+def phase_tools():
+    """Phase 19: the repo-level tools on the card — (a) the whole-solve
+    profile, (b) the hierarchical demo, (c) the SLO demo, (d) the fleet
+    tracing demo, each followed by a ``guard`` line.  Kernel counts are
+    zeroed just before and read just after; the price loops of (a)'s
+    hierarchical solves and (b)'s contended solve launch
+    ``price_step_scores``.  Returns the counts."""
+    from karpenter_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_counts()
+    for name, fn in (("tools_profile", tools_profile),
+                     ("tools_hier_demo", tools_hier_demo),
+                     ("tools_slo_demo", tools_slo_demo),
+                     ("tools_fleet_demo", tools_fleet_demo)):
+        PHASE[0] = name
+        t0 = time.perf_counter()
+        emit(name, **fn(), wall_s=time.perf_counter() - t0)
+        guard_clean(name)
+    launches = kernels.counts()
+    check(launches["packed_score"] == 0,
+          f"packed_scan_scores launched on a tools path: {launches}")
+    emit("tools", launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4461,6 +4690,7 @@ def main() -> int:
         bench_launches = phase_bench()
         resilience_launches = phase_resilience()
         fuzz_launches = phase_fuzz()
+        tools_launches = phase_tools()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4474,7 +4704,8 @@ def main() -> int:
                      + gang_launches[name] + service_launches[name]
                      + operator_launches[name] + mesh_launches[name]
                      + analysis_launches[name] + bench_launches[name]
-                     + resilience_launches[name] + fuzz_launches[name]),
+                     + resilience_launches[name] + fuzz_launches[name]
+                     + tools_launches[name]),
         "max_abs_err": max_err[name],
         "ms": timing[key]["kernel_ms"],
         "plain_ms": timing[key]["plain_ms"],

@@ -227,7 +227,8 @@ def _device_arg(parser) -> None:
                              "runs the plain PyTorch path on the host)")
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's argument parser (every subcommand)."""
     p = argparse.ArgumentParser(prog="karpenter-tpu-torch",
                                 description=__doc__.split("\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -325,8 +326,11 @@ def main(argv=None) -> int:
 
     ver = sub.add_parser("version", help="print version")
     ver.set_defaults(fn=lambda a: (print(f"karpenter-tpu {__version__}"), 0)[1])
+    return p
 
-    args = p.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     rc = args.fn(args)
     # exit joins non-daemon warm threads; bound that wait so a warm hung on
     # a wedged device cannot pin the process forever

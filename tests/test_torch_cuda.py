@@ -27,7 +27,10 @@ operator on the card provisions.  The bench's consolidation-sweep probe
 decisions in one batched dispatch on the card.  The kernel-library cache
 (``KT_JIT_CACHE``): the bench's cold-restart children populate it and
 then load from it, and a card warm in a fresh process loads the library
-from it without running nvcc.
+from it without running nvcc.  The whole-solve profile attributes every
+kernel of a profiled config-2 solve to a stage, and the hierarchical
+demo's contended solve launches the fused entry once per price iteration
+and plans as the host does.
 """
 
 import numpy as np
@@ -560,3 +563,38 @@ def test_a_card_warm_loads_the_library_from_the_cache(cuda, tmp_path):
         build_s, load_s, loaded, path = got[lib.name]
         assert build_s is None and load_s is not None and loaded
         assert Path(path).parent == tmp_path
+
+
+def test_profile_attributes_every_kernel_to_a_stage_on_the_card(cuda):
+    """``scripts/profile_solve_torch.py`` on a 2,000-pod cut of config 2:
+    every kernel of the profiled solve attributed through its runtime
+    launch call, the launches counted under ``device_execute``, the named
+    stages covering the wall, the stage clock anchored."""
+    from scripts import profile_solve_torch as ps
+
+    doc = ps.measure_solve(None, pods_n=2000, repeats=1, trace_dir=None)
+    table = doc["stages"]
+    rows = {r["stage"]: r for r in table["stages"]}
+    assert doc["device"].startswith("cuda") and doc["launches"] > 0
+    assert table["attributed_by"]["own"] == 0
+    assert sum(r["launches"] for r in rows.values()) == doc["launches"]
+    assert rows["device_execute"]["launches"] > 0
+    assert table["covered"] >= 0.9 and table["profiled_covered"] >= 0.9
+    assert abs(table["clock_check_ms"]) < 5.0
+
+
+def test_hier_demo_contended_solve_on_the_card_matches_cpu(cuda):
+    """``scripts/hier_demo_torch.py``'s contended solve on the card: one
+    ``price_step_scores`` launch per price iteration, and the plan of the
+    same batch solved on the host from the same node-name counter."""
+    from scripts import fuzz_sweep_torch as fz
+    from scripts import hier_demo_torch as hd
+
+    run = hd.run(device=None, nd=4, per=500, verbose=False)
+    stats = run["stats"]
+    assert stats["price_iters"] >= 1
+    assert run["launches"] == {"packed_score": 0,
+                               "price_step_score": stats["price_iters"]}
+    cpu, _stats = hd.contended("cpu", run["pods"], run["limit_cpu"],
+                               run["names_at"])
+    assert fz.same_plan(run["result"], cpu)

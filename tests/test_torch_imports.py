@@ -1,7 +1,8 @@
 """The port stands alone: every ``karpenter_tpu_torch`` module,
 ``chip_smoke.py`` with the scripts it drives (the multihost dryrun, the
-chaos and replay drivers, the fuzz sweep), and the benchmark entry points
-``bench_torch.py`` and ``bench_all_torch.py`` import with JAX,
+chaos and replay drivers, the fuzz sweep, the profile, the demos), the
+protocol-module generator, the GPU-node renderer and the benchmark entry
+points ``bench_torch.py`` and ``bench_all_torch.py`` import with JAX,
 ml_dtypes, the reference package and the reference's benchmarks BLOCKED
 (a meta-path finder refusing ``jax``, ``jaxlib``, ``ml_dtypes``,
 ``karpenter_tpu`` / ``karpenter_tpu.*``, ``bench`` and ``bench_all`` by
@@ -33,11 +34,15 @@ MODULES = sorted(
         karpenter_tpu_torch.__path__, prefix="karpenter_tpu_torch."))
 #: the port's scripts outside the package (``chip_smoke.py`` drives them;
 #: the benchmark entry points; the chaos and replay drivers; the fuzz
-#: sweep; the hierarchical-solve cost probe)
+#: sweep; the hierarchical-solve cost probe; the whole-solve profile, the
+#: four demos, the protocol-module generator and the GPU-node renderer)
 SCRIPTS = ["chip_smoke", "scripts.dryrun_multihost_torch", "bench_torch",
            "bench_all_torch", "scripts.chaos_drive_torch",
            "scripts.replay_traffic_torch", "scripts.fuzz_sweep_torch",
-           "scripts.hier_cost_probe_torch"]
+           "scripts.hier_cost_probe_torch", "scripts.profile_solve_torch",
+           "scripts.hier_demo_torch", "scripts.slo_demo_torch",
+           "scripts.tune_demo_torch", "scripts.fleet_trace_demo_torch",
+           "scripts.gen_proto_torch", "deploy.render_torch"]
 
 _PROBE = r"""
 import importlib, json, sys
