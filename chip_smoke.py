@@ -2483,7 +2483,6 @@ def service_pipeline(catalog) -> dict:
     last served plan against its solo plan."""
     import bench_torch as bt
     from karpenter_tpu_torch.metrics import MEGABATCH_SLOTS, Registry
-    from karpenter_tpu_torch.obs.occupancy import device_busy_ms
     from karpenter_tpu_torch.service.server import SolvePipeline
     from karpenter_tpu_torch.solver.scheduler import BatchScheduler
 
@@ -2516,11 +2515,9 @@ def service_pipeline(catalog) -> dict:
                              admission=False)
         try:
             occ0 = (sum(h.sums.values()), sum(h.totals.values()))
-            busy0 = device_busy_ms()
             names_from(100_000)
             counts, last, lat, _s, wall = bt.closed_loop(
                 pipe, kwargs_of, concurrency, SERVICE["seconds"])
-            busy = device_busy_ms() - busy0
             d_sum = sum(h.sums.values()) - occ0[0]
             d_n = sum(h.totals.values()) - occ0[1]
         finally:
@@ -2533,7 +2530,6 @@ def service_pipeline(catalog) -> dict:
                     wall_s=wall, p50_ms=percentile(lat, 0.5) * 1e3,
                     p99_ms=percentile(lat, 0.99) * 1e3,
                     slot_occupancy_mean=(d_sum / d_n) if d_n else None,
-                    device_busy_share=busy / 1000.0 / wall,
                     plans_equal_solo=sum(equal))
 
     out = {"c1_serial": run(1, 1), "c1": run(1, SERVICE["max_slots"])}

@@ -882,10 +882,11 @@ INVENTORY = {
         "fast-burn page)."),
     OCCUPANCY_DEVICE_BUSY: (
         "gauge", (),
-        "Share of wall time the device spent in dispatch/fence spans "
-        "over the last sampler interval (span-derived, scaled by the "
-        "tracer's sampling rate); ~1.0 = device-bound fleet, ~0 = "
-        "over-provisioned."),
+        "Share of wall time inside device-solve (dispatch/fence) spans "
+        "over the last sampler interval, host enqueue included (span-"
+        "derived, scaled by the tracer's sampling rate): an upper bound "
+        "on the device's occupancy, not the kernels' share; ~1.0 = "
+        "solve-bound fleet, ~0 = over-provisioned."),
     OCCUPANCY_SLOT_FILL: (
         "gauge", (),
         "Mean occupied megabatch slots per dispatch over the last "

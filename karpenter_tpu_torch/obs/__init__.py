@@ -11,7 +11,7 @@ flight recorder.
   (off by knob → falsy ``NULL_SAMPLER``).
 - :mod:`.slo` — per-priority-class objectives evaluated as multi-window
   burn rates with error-budget accounting; the ``/sloz`` document.
-- :mod:`.occupancy` — device-busy share (CUDA events on the card),
+- :mod:`.occupancy` — device-busy share (device-solve spans, an upper bound),
   megabatch slot occupancy and delta inline fraction.
 - :mod:`.protocol` — the session-protocol conformance tap.
 - :mod:`.export` — the ``/tracez`` / ``/statusz`` documents and the

@@ -5,12 +5,13 @@
 gauges, refreshed once per sampler tick and therefore recorded as series
 by the same tick that publishes them:
 
-- ``karpenter_occupancy_device_busy_share`` — fraction of wall time the
-  device spent inside dispatch/fence spans over the last interval.  The
-  accountant subscribes to the tracer's finished-trace stream (a
-  :meth:`Tracer.add_sink` sink) and sums device-span durations; with
-  trace sampling on (``KT_TRACE_SAMPLE_EVERY`` > 1) each sampled trace
-  stands for ``sample_every`` solves, so the sum is scaled back up.
+- ``karpenter_occupancy_device_busy_share`` — the share of wall time
+  inside device-solve spans (``dispatch`` / ``fence``) over the last
+  interval, on every device.  The accountant subscribes to the tracer's
+  finished-trace stream (a :meth:`Tracer.add_sink` sink) and sums those
+  spans' durations; with trace sampling on (``KT_TRACE_SAMPLE_EVERY`` >
+  1) each sampled trace stands for ``sample_every`` solves, so the sum is
+  scaled back up.
 - ``karpenter_occupancy_megabatch_slot_fill`` — mean occupied slots per
   dispatched megabatch over the interval, from windowed deltas of the
   existing ``karpenter_solver_megabatch_slots`` histogram sum/count
@@ -22,19 +23,14 @@ by the same tick that publishes them:
   never queues — a strong over-provisioning signal, and the inverse of
   device_busy's under-provisioning one.
 
-On the card the device-busy share is MEASURED, not derived from host
-spans: every dispatch of the device solve (a single solve or a whole
-megabatch flush) records a pair of CUDA events on its stream, one before
-its first upload and one after its last launch, and the read-back adds
-the events' ``elapsed_time`` to :func:`device_busy_ms` once per dispatch
-(solver/tpu.py ``_read_back``).  A batched flush therefore counts its
-device time once, not once per slot, and host work between the events'
-enqueue and the read-back is not booked as device time.  An accountant
-built with ``device_events=True`` (``SolverService`` on a ``cuda``
-scheduler) takes its busy time from those measurements; one built
-without it (a host device, or the tests' synthetic traces) sums the
-``dispatch``/``fence`` spans as the reference does.  The slot and inline
-gauges are derived from the slots histogram and the span stream in both.
+The device-busy share is an UPPER BOUND on the device's occupancy, not
+the kernels' share of the wall: the spans hold the host's enqueue (the
+group loop makes its launches from Python, and on a launch-bound loop
+the card idles for most of that time) as well as the wait for the
+device.  The kernels' own share comes from a profiler (the benchmark's
+traced runs read it).  A CUDA-event pair around a dispatch does not
+measure it either: on a launch-bound loop the events span the enqueue,
+not the kernels.
 """
 
 from __future__ import annotations
@@ -51,24 +47,6 @@ from ..utils.clock import Clock
 #: device results on the pipelined path.
 DEVICE_SPANS = ("dispatch", "fence")
 
-_busy_lock = threading.Lock()
-_busy_ms = 0.0     # guarded-by: _busy_lock
-
-
-def record_device_ms(ms: float) -> None:
-    """Book one dispatch's CUDA-event-measured device time (the read-back
-    of solver/tpu.py calls this once per single solve or megabatch)."""
-    global _busy_ms
-    with _busy_lock:
-        _busy_ms += float(ms)
-
-
-def device_busy_ms() -> float:
-    """Cumulative CUDA-event-measured device time of this process, ms."""
-    with _busy_lock:
-        return _busy_ms
-
-
 class OccupancyAccountant:
     """Tracer sink + sampler hook pair.
 
@@ -79,13 +57,10 @@ class OccupancyAccountant:
     """
 
     def __init__(self, registry, clock: Optional[Clock] = None,
-                 sample_every: int = 1, device_events: bool = False) -> None:
+                 sample_every: int = 1) -> None:
         self.registry = registry
         self.clock = clock or Clock()
         self.sample_every = max(1, int(sample_every))
-        #: busy time from the dispatches' CUDA events (device_busy_ms)
-        #: instead of the span sum
-        self.device_events = bool(device_events)
         self._lock = threading.Lock()
         self._device_s = 0.0     # guarded-by: _lock
         self._deltas = 0         # guarded-by: _lock
@@ -134,9 +109,7 @@ class OccupancyAccountant:
         slot_sum = slots.sums.get(lkey, 0.0) if slots is not None else 0.0
         slot_count = slots.totals.get(lkey, 0) if slots is not None else 0
         with self._lock:
-            device_s = (device_busy_ms() / 1000.0 if self.device_events
-                        else self._device_s)
-            cur = (now, device_s, slot_sum, slot_count,
+            cur = (now, self._device_s, slot_sum, slot_count,
                    self._deltas, self._inline)
         last, self._last = self._last, cur
         if last is None:

@@ -30,10 +30,18 @@ Design constraints, in order:
   trace:`` / ``with trace.span(...):`` are the only blessed forms — a bare
   ``Tracer.start()`` leaks an open trace on any exception path, and ktlint
   rule KT007 flags it.
+- **Collector pauses are spans.**  :func:`gc_spans` binds a request's trace
+  to the calling thread for the duration of a call; a ``gc.callbacks``
+  hook, installed once at import, stamps each collection that runs on that
+  thread meanwhile, and the binding records them as ``gc`` spans when the
+  call returns.  The hook takes no lock (a collection can fire while this
+  thread holds a trace's lock) and, with no trace bound, does one
+  thread-local read.
 """
 
 from __future__ import annotations
 
+import gc
 import itertools
 import logging
 import os
@@ -51,8 +59,11 @@ from ..metrics import (
 from ..utils.clock import Clock
 
 #: hard per-trace span cap: a runaway retry ladder must not grow one trace
-#: without bound (spans past the cap are dropped and counted on the root)
-MAX_SPANS_PER_TRACE = 512
+#: without bound (spans past the cap are dropped and counted on the root).
+#: A 50,000-pod device solve opens a few dozen ``step.*`` spans per group
+#: step; the cap holds such a request whole, its relax repair and residue
+#: waves included, with room to spare
+MAX_SPANS_PER_TRACE = 8192
 
 _TRACE_IDS = itertools.count(1)
 
@@ -468,3 +479,68 @@ class Tracer:
                 logging.getLogger(__name__).warning(
                     "flight recorder rejected trace %s", trace.trace_id,
                     exc_info=True)
+
+
+# ---------------------------------------------------------------------------
+# collector pauses
+# ---------------------------------------------------------------------------
+
+
+class _GcSpans:
+    """A request's trace bound to this thread for a call, and the
+    collections stamped under it: ``(t0, t1, generation)``, this thread
+    only.  A binding of the trace already bound here stays inert."""
+
+    __slots__ = ("trace", "outer", "bound", "pauses", "t0")
+
+    def __init__(self, trace) -> None:
+        self.trace = trace
+        self.outer: Optional["_GcSpans"] = None
+        self.bound = False
+        self.pauses: list = []
+        self.t0: Optional[float] = None
+
+    def __enter__(self) -> "_GcSpans":
+        outer = getattr(_gc_bound, "b", None)
+        if outer is None or outer.trace is not self.trace:
+            self.outer, self.bound = outer, True
+            _gc_bound.b = self
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self.bound:
+            # unbind first: a collection inside record() stays unstamped
+            _gc_bound.b = self.outer
+            for t0, t1, gen in self.pauses:
+                self.trace.record("gc", t0, t1, generation=gen)
+        return False
+
+
+_gc_bound = threading.local()
+
+
+def _gc_hook(phase: str, info: dict) -> None:
+    """``gc.callbacks`` entry: stamp a collection on the calling thread's
+    bound trace.  Reads the trace's clock and appends to the binding's own
+    list; never takes a lock and never calls into the trace's span API."""
+    b = getattr(_gc_bound, "b", None)
+    if b is None:
+        return
+    if phase == "start":
+        b.t0 = b.trace.now()
+    elif b.t0 is not None:
+        b.pauses.append((b.t0, b.trace.now(), info.get("generation")))
+        b.t0 = None
+
+
+def gc_spans(trace):
+    """``with gc_spans(trace):`` around a traced request's call on this
+    thread: each collection that runs on the thread meanwhile becomes a
+    ``gc`` span of ``trace`` (``generation`` attribute) when the block
+    exits.  Nested bindings of the same trace leave it to the outermost;
+    a falsy trace binds nothing (the shared no-op span)."""
+    return _GcSpans(trace) if trace else NULL_SPAN
+
+
+if _gc_hook not in gc.callbacks:
+    gc.callbacks.append(_gc_hook)

@@ -1406,12 +1406,9 @@ class SolverService:
         # sampler's tick, and the per-class SLO burn-rate engine whose
         # windowed numbers come off the sampler's rings
         self.sampler = sampler_for(self.registry, clock=self.tracer.clock)
-        # on the card the busy share comes from the dispatches' CUDA events
-        device = getattr(self.scheduler, "device", None)
         self._occupancy = OccupancyAccountant(
             self.registry, clock=self.tracer.clock,
-            sample_every=self.tracer.sample_every,
-            device_events=getattr(device, "type", None) == "cuda")
+            sample_every=self.tracer.sample_every)
         self.tracer.add_sink(self._occupancy.on_trace)
         self.slo = SloEngine(self.registry, sampler=self.sampler,
                              clock=self.tracer.clock,

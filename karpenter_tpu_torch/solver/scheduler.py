@@ -90,7 +90,7 @@ from ..models.tensorize import (
     tensorize,
 )
 from ..obs import tracer_for
-from ..obs.trace import NULL_TRACE, Tracer
+from ..obs.trace import NULL_TRACE, Tracer, gc_spans
 from .guard import DeviceGuard, DeviceHang
 from .reference import solve as oracle_solve
 from .tpu import (
@@ -872,17 +872,21 @@ class BatchScheduler:
         t0 = time.perf_counter()
         trace = trace or NULL_TRACE
         trace.annotate(backend=self.backend, n_pods=len(pods))
-        hardened = [_harden_preferences(p) for p in pods]
         try:
-            # the dispatch span covers tensorize + uploads + enqueue on the
-            # async path; on the sync/oracle path the whole first wave
-            with trace.span("dispatch", async_dispatch=dispatch):
-                first = self._solve_once(
-                    hardened, provisioners, instance_types,
-                    list(existing_nodes), daemonsets, unavailable,
-                    allow_new_nodes, max_new_nodes,
-                    dispatch=dispatch, trace=trace,
-                )
+            # collector pauses on this thread become the trace's gc spans
+            with gc_spans(trace):
+                with trace.span("harden"):
+                    hardened = [_harden_preferences(p) for p in pods]
+                # the dispatch span covers tensorize + uploads + enqueue on
+                # the async path; on the sync/oracle path the whole first
+                # wave
+                with trace.span("dispatch", async_dispatch=dispatch):
+                    first = self._solve_once(
+                        hardened, provisioners, instance_types,
+                        list(existing_nodes), daemonsets, unavailable,
+                        allow_new_nodes, max_new_nodes,
+                        dispatch=dispatch, trace=trace,
+                    )
         except BaseException:
             # a synchronous failure before the finish closure exists must
             # still land in the histogram
@@ -890,7 +894,7 @@ class BatchScheduler:
                 time.perf_counter() - t0)
             raise
 
-        def _finish() -> SolveResult:
+        def _epilogue() -> SolveResult:
             try:
                 if isinstance(first, _PendingWave):
                     # the read-back of the async first wave
@@ -967,7 +971,9 @@ class BatchScheduler:
                 # the relax rung — gang groups are relax-ineligible, so
                 # their scan seats are fixed by the time the epilogue
                 # audits, retracts and packs them
-                if gangmod.gang_enabled() and gangmod.has_gangs(pods):
+                with trace.span("gang_gate"):
+                    gangs = gangmod.gang_enabled() and gangmod.has_gangs(pods)
+                if gangs:
                     with trace.span("gang") as gang_span:
                         result = gangmod.run_epilogue(
                             result, pods,
@@ -999,6 +1005,10 @@ class BatchScheduler:
             finally:
                 self.registry.histogram(SCHEDULING_DURATION).observe(
                     time.perf_counter() - t0)
+
+        def _finish() -> SolveResult:
+            with gc_spans(trace):
+                return _epilogue()
 
         return PendingScheduleResult(_finish)
 
@@ -1453,19 +1463,20 @@ class BatchScheduler:
             return result  # the rung refines the device scan only
         if not allow_new_nodes or max_new_nodes is not None:
             return result
-        tpu_pods = [p for p in hardened if not device_inexpressible(p)]
-        if (not tpu_pods or len(tpu_pods) <= self.native_batch_limit
-                or batch_needs_oracle(hardened)):
-            # small batches are oracle-grade already (and under auto the
-            # oracle served them — no scan to refine)
-            return result
-        if self._tensorize_cache is None:
-            return result  # without cached tensorize the probe would pay
-            # a full host build per solve — not the rung's trade
-        guarded = self.backend == "auto" and self._guard.enabled
-        if result.served_cold or (guarded and not self._guard.healthy):
-            relax_mod.record_outcome(self.registry, "skipped")
-            return result
+        with trace.span("relax_gate"):
+            tpu_pods = [p for p in hardened if not device_inexpressible(p)]
+            if (not tpu_pods or len(tpu_pods) <= self.native_batch_limit
+                    or batch_needs_oracle(hardened)):
+                # small batches are oracle-grade already (and under auto
+                # the oracle served them — no scan to refine)
+                return result
+            if self._tensorize_cache is None:
+                return result  # without cached tensorize the probe would
+                # pay a full host build per solve — not the rung's trade
+            guarded = self.backend == "auto" and self._guard.enabled
+            if result.served_cold or (guarded and not self._guard.healthy):
+                relax_mod.record_outcome(self.registry, "skipped")
+                return result
         try:
             # identity-tier hit: these are the same pod objects the solve
             # wave tensorized moments ago
@@ -1502,27 +1513,33 @@ class BatchScheduler:
         """One pod wave with the preference-relaxation ladder applied.
         ``first`` short-circuits the all-preferences-hardened opening solve
         when the caller already ran it."""
-        result = first if first is not None else self._solve_once(
-            [_harden_preferences(p) for p in pods], provisioners,
-            instance_types, existing_nodes, daemonsets, unavailable,
-            allow_new_nodes, max_new_nodes, trace=trace,
-        )
-        max_pref = min(
-            max((_n_preferences(p) for p in pods), default=0),
-            MAX_RELAXATION_WAVES,
-        )
-        for keep in range(max_pref - 1, -1, -1):
-            retry = [p for p in pods if p.name in result.infeasible
-                     and _n_preferences(p) > keep]
-            if not retry:
-                continue
-            _merge(result, self._solve_once(
-                [_harden_preferences(p, keep) for p in retry],
-                provisioners, instance_types,
-                list(result.existing_nodes) + result.nodes, daemonsets,
-                unavailable, allow_new_nodes,
-                _budget_left(result, max_new_nodes), trace=trace,
-            ))
+        trace = trace or NULL_TRACE
+        result = first
+        if result is None:
+            with trace.span("harden"):
+                hardened = [_harden_preferences(p) for p in pods]
+            result = self._solve_once(
+                hardened, provisioners, instance_types, existing_nodes,
+                daemonsets, unavailable, allow_new_nodes, max_new_nodes,
+                trace=trace,
+            )
+        with trace.span("ladder"):
+            max_pref = min(
+                max((_n_preferences(p) for p in pods), default=0),
+                MAX_RELAXATION_WAVES,
+            )
+            for keep in range(max_pref - 1, -1, -1):
+                retry = [p for p in pods if p.name in result.infeasible
+                         and _n_preferences(p) > keep]
+                if not retry:
+                    continue
+                _merge(result, self._solve_once(
+                    [_harden_preferences(p, keep) for p in retry],
+                    provisioners, instance_types,
+                    list(result.existing_nodes) + result.nodes, daemonsets,
+                    unavailable, allow_new_nodes,
+                    _budget_left(result, max_new_nodes), trace=trace,
+                ))
         return result
 
     def _solve_once(
@@ -1534,10 +1551,16 @@ class BatchScheduler:
         on the plain flat device path, a :class:`_PendingWave` (the oracle,
         hierarchical and carve-out-first routes return a finished
         result)."""
-        # a hard capacity-type spread couples the whole batch to the
-        # sequential engine (batch_needs_oracle) — every backend
-        if (self.backend == "oracle" or self._route_small(len(pods))
-                or batch_needs_oracle(pods)):
+        trace = trace or NULL_TRACE
+        with trace.span("route"):
+            # a hard capacity-type spread couples the whole batch to the
+            # sequential engine (batch_needs_oracle) — every backend
+            to_oracle = (self.backend == "oracle"
+                         or self._route_small(len(pods))
+                         or batch_needs_oracle(pods))
+            to_hier = not to_oracle and self._route_hier(
+                pods, existing_nodes, allow_new_nodes, max_new_nodes)
+        if to_oracle:
             t0 = time.perf_counter()
             try:
                 return oracle_solve(
@@ -1550,8 +1573,7 @@ class BatchScheduler:
                 self.registry.histogram(SOLVER_BACKEND_DURATION).observe(
                     time.perf_counter() - t0, {"backend": "oracle"}
                 )
-        if self._route_hier(pods, existing_nodes, allow_new_nodes,
-                            max_new_nodes):
+        if to_hier:
             from .hierarchy import solve_hierarchical
 
             self.hier_stats = {}
@@ -1679,8 +1701,6 @@ class BatchScheduler:
         call runs through the hang guard, and a hang or an unhealthy
         device serves the wave from a host tier (``_degraded_fallback``)."""
         trace = trace or NULL_TRACE
-        tpu_pods = [p for p in pods if not device_inexpressible(p)]
-        cpu_pods = [p for p in pods if device_inexpressible(p)]
 
         # positive affinity couples the two batches: whichever side's
         # affinity selectors match the other side's pods must solve SECOND
@@ -1689,9 +1709,12 @@ class BatchScheduler:
                     if not t.anti]
             return any(s.matches(q.labels) for s in sels for q in dst)
 
-        cpu_first = bool(cpu_pods and tpu_pods
-                         and _refers(tpu_pods, cpu_pods)
-                         and not _refers(cpu_pods, tpu_pods))
+        with trace.span("route"):
+            tpu_pods = [p for p in pods if not device_inexpressible(p)]
+            cpu_pods = [p for p in pods if device_inexpressible(p)]
+            cpu_first = bool(cpu_pods and tpu_pods
+                             and _refers(tpu_pods, cpu_pods)
+                             and not _refers(cpu_pods, tpu_pods))
 
         # placed-snapshot chaining: each stage solves against the previous
         # stage's PLACED existing snapshots (+ placed prior new nodes)
@@ -1843,8 +1866,13 @@ class BatchScheduler:
 
             return _PendingWave(_finish_mega)
 
+        def _bound(fn, *args, **kwargs):
+            # the guard's call thread stamps its collections on the trace
+            with gc_spans(trace):
+                return fn(*args, **kwargs)
+
         def _call(fn, *args, **kwargs):
-            return (self._guard.run(fn, *args, **kwargs) if guarded
+            return (self._guard.run(_bound, fn, *args, **kwargs) if guarded
                     else fn(*args, **kwargs))
 
         if dispatch:

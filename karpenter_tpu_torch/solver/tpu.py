@@ -74,7 +74,6 @@ from .. import faults as faults_mod
 from ..device import resolve_device
 from ..models import labels as L
 from ..models.tensorize import SolveTensors
-from ..obs.occupancy import record_device_ms
 from ..obs.trace import NULL_TRACE
 from ..ops.masks import (
     BIG,
@@ -434,11 +433,22 @@ def _select(cond: torch.Tensor, a, b):
 
 
 def _run_scan(consts: dict, init: tuple, NR: int, Z: int, track: bool,
-              flags: dict):
+              flags: dict, trace=NULL_TRACE):
     """Run every group step over all slots.  ``consts`` and ``init`` are
     [B, ...] tensors; ``flags`` holds host booleans per group (``zoned_any``,
     ``zoned_all``, ``zpa_any``, ``hpa_any``) that let a step skip a branch
-    no slot takes.  Returns (carry, ys[B, G, NR] int32 or None)."""
+    no slot takes.  Returns (carry, ys[B, G, NR] int32 or None).
+
+    ``trace`` gets a span around each contiguous part of a step, so the
+    host time that makes a step's launches is named by the code making
+    them: ``step.rows`` (per-slot feasibility, affinity modes, backfill
+    state), ``step.caps`` (zone-level caps, new-node scoring),
+    ``step.seed`` (the zone-seed and host-seed flows, where taken),
+    ``step.alloc`` (the zone allocation, holding a ``step.fill`` per
+    ``skew_band_fill`` / ``water_fill`` call), ``step.place`` (the
+    creation rounds, holding a ``step.pick`` per ``pick`` and a
+    ``step.write`` per ``write_block``) and ``step.count`` (the
+    counters).  A fixed number of spans per step, none per kernel."""
     counts = consts["counts"]          # [B, G]
     suffix_res = consts["suffix_res"]  # [B, G, Z, R]
     suffix_cnt = consts["suffix_cnt"]  # [B, G, Z]
@@ -493,220 +503,225 @@ def _run_scan(consts: dict, init: tuple, NR: int, Z: int, track: bool,
         (res, row_zone, row_dom, row_cand, row_price, selcnt, active,
          n_used, zc, tot, prov_used, infeasible) = carry
 
-        req_g = requests[:, g]                     # [B, R]
-        cnt = counts[:, g].to(torch.float32)       # [B]
-        Fg = F[:, g]                               # [B, C]
-        dok = dom_ok[:, g]                         # [B, D]
-        Fd_g = Fg[:, :, None] & cand_avail & dok[:, None, :]     # [B, C, D]
-        zone_safe = torch.clamp(row_zone, min=0)
-        zone1h = row_zone[..., None] == zone_ar                  # [B, NR, Z]
-        zone1h_safe = zone_safe[..., None] == zone_ar
+        with trace.span("step.rows"):
+            req_g = requests[:, g]                     # [B, R]
+            cnt = counts[:, g].to(torch.float32)       # [B]
+            Fg = F[:, g]                               # [B, C]
+            dok = dom_ok[:, g]                         # [B, D]
+            Fd_g = Fg[:, :, None] & cand_avail & dok[:, None, :]    # [B, C, D]
+            zone_safe = torch.clamp(row_zone, min=0)
+            zone1h = row_zone[..., None] == zone_ar                # [B, NR, Z]
+            zone1h_safe = zone_safe[..., None] == zone_ar
 
-        # ---- per-slot feasibility & capacity --------------------------
-        safe_cand = torch.clamp(row_cand, min=0)
-        safe_dom = torch.clamp(row_dom, min=0)
-        rf_cand = Fd_g[ar[:, None], safe_cand, safe_dom]          # [B, NR]
-        exv = ex_ok[:, g][:, ex_slot]
-        rf = active & torch.where(row_cand >= 0, rf_cand, exv)
+            # ---- per-slot feasibility & capacity -------------------------
+            safe_cand = torch.clamp(row_cand, min=0)
+            safe_dom = torch.clamp(row_dom, min=0)
+            rf_cand = Fd_g[ar[:, None], safe_cand, safe_dom]          # [B, NR]
+            exv = ex_ok[:, g][:, ex_slot]
+            rf = active & torch.where(row_cand >= 0, rf_cand, exv)
 
-        # ---- positive pod-affinity modes A/B/C --------------------------
-        zpa = g_zone_paff[:, g]
-        zpa_on = zpa >= 0
-        zpa_i = torch.clamp(zpa, min=0)
-        ztot = _sel_rows(tot, zpa_i) > 0
-        zself = g_sel_match[ar, zpa_i, g]
-        zone_seed = zpa_on & ~ztot & zself
-        zdead = zpa_on & ~ztot & ~zself
+            # ---- positive pod-affinity modes A/B/C -----------------------
+            zpa = g_zone_paff[:, g]
+            zpa_on = zpa >= 0
+            zpa_i = torch.clamp(zpa, min=0)
+            ztot = _sel_rows(tot, zpa_i) > 0
+            zself = g_sel_match[ar, zpa_i, g]
+            zone_seed = zpa_on & ~ztot & zself
+            zdead = zpa_on & ~ztot & ~zself
 
-        hpa = g_host_paff[:, g]
-        hpa_on = hpa >= 0
-        hpa_i = torch.clamp(hpa, min=0)
-        htot = _sel_rows(tot, hpa_i) > 0
-        hhave = _col(selcnt, hpa_i) > 0                           # [B, NR]
-        hself = g_sel_match[ar, hpa_i, g]
-        host_seed = hpa_on & ~htot & hself
-        host_gated = hpa_on & htot
-        hdead = hpa_on & ~htot & ~hself
+            hpa = g_host_paff[:, g]
+            hpa_on = hpa >= 0
+            hpa_i = torch.clamp(hpa, min=0)
+            htot = _sel_rows(tot, hpa_i) > 0
+            hhave = _col(selcnt, hpa_i) > 0                           # [B, NR]
+            hself = g_sel_match[ar, hpa_i, g]
+            host_seed = hpa_on & ~htot & hself
+            host_gated = hpa_on & htot
+            hdead = hpa_on & ~htot & ~hself
 
-        rf = (rf & (~host_gated[:, None] | hhave)
-              & ~hdead[:, None] & ~zdead[:, None])
-        # an empty node never satisfies mode-A/C hostname affinity
-        new_allowed = ~host_gated & ~hdead & ~zdead               # [B]
+            rf = (rf & (~host_gated[:, None] | hhave)
+                  & ~hdead[:, None] & ~zdead[:, None])
+            # an empty node never satisfies mode-A/C hostname affinity
+            new_allowed = ~host_gated & ~hdead & ~zdead               # [B]
 
-        # step-entry PER-ZONE net-backfill state for pick()
-        sc_g = suffix_cnt[:, g]                                   # [B, Z]
-        cnt_z_safe = torch.where(sc_g > 0, sc_g, 1.0)
-        avg_req_z = suffix_res[:, g] / cnt_z_safe[..., None]      # [B, Z, R]
-        row_avg = _sel_many(avg_req_z, zone_safe)                 # [B, NR, R]
-        per_row_absorb = torch.where(
-            row_avg > 0,
-            torch.clamp(res, min=0.0) / torch.clamp(row_avg, min=1e-9),
-            BIGN,
-        ).amin(dim=2)                                             # [B, NR]
-        rows_absorb_z = _zone_sum(
-            torch.where(active, per_row_absorb, 0.0), zone1h_safe)  # [B, Z]
-        net_backfill_frac_z = torch.clamp(
-            (sc_g - rows_absorb_z) / cnt_z_safe, 0.0, 1.0)       # [B, Z]
-        req_pos = req_g > 0                                       # [B, R]
-        req_safe = torch.clamp(req_g, min=1e-9)
-        backfill_eq_z = torch.where(
-            req_pos[:, None, :],
-            suffix_res[:, g] / req_safe[:, None, :],
-            BIGN,
-        ).amin(dim=2)                                             # [B, Z]
+            # step-entry PER-ZONE net-backfill state for pick()
+            sc_g = suffix_cnt[:, g]                                   # [B, Z]
+            cnt_z_safe = torch.where(sc_g > 0, sc_g, 1.0)
+            avg_req_z = suffix_res[:, g] / cnt_z_safe[..., None]    # [B, Z, R]
+            row_avg = _sel_many(avg_req_z, zone_safe)              # [B, NR, R]
+            per_row_absorb = torch.where(
+                row_avg > 0,
+                torch.clamp(res, min=0.0) / torch.clamp(row_avg, min=1e-9),
+                BIGN,
+            ).amin(dim=2)                                             # [B, NR]
+            rows_absorb_z = _zone_sum(
+                torch.where(active, per_row_absorb, 0.0), zone1h_safe)  # [B, Z]
+            net_backfill_frac_z = torch.clamp(
+                (sc_g - rows_absorb_z) / cnt_z_safe, 0.0, 1.0)       # [B, Z]
+            req_pos = req_g > 0                                       # [B, R]
+            req_safe = torch.clamp(req_g, min=1e-9)
+            backfill_eq_z = torch.where(
+                req_pos[:, None, :],
+                suffix_res[:, g] / req_safe[:, None, :],
+                BIGN,
+            ).amin(dim=2)                                             # [B, Z]
 
-        ratios = torch.where(
-            req_pos[:, None, :],
-            torch.floor((res + 1e-6) / req_safe[:, None, :]),
-            BIGN)
-        cap = ratios.amin(dim=2)                                  # [B, NR]
+            ratios = torch.where(
+                req_pos[:, None, :],
+                torch.floor((res + 1e-6) / req_safe[:, None, :]),
+                BIGN)
+            cap = ratios.amin(dim=2)                                  # [B, NR]
 
-        sh = g_host_spread[:, g]
-        hk = g_host_cap[:, g].to(torch.float32)
-        selrow = _col(selcnt, torch.clamp(sh, min=0)).to(torch.float32)
-        hcap = torch.where(hk[:, None] > 0, hk[:, None] - selrow,
-                           torch.where(selrow > 0, 0.0, BIGN))
-        cap = torch.where(sh[:, None] >= 0, torch.minimum(cap, hcap), cap)
-        cap = torch.clamp(cap, min=0.0) * rf
+            sh = g_host_spread[:, g]
+            hk = g_host_cap[:, g].to(torch.float32)
+            selrow = _col(selcnt, torch.clamp(sh, min=0)).to(torch.float32)
+            hcap = torch.where(hk[:, None] > 0, hk[:, None] - selrow,
+                               torch.where(selrow > 0, 0.0, BIGN))
+            cap = torch.where(sh[:, None] >= 0, torch.minimum(cap, hcap), cap)
+            cap = torch.clamp(cap, min=0.0) * rf
 
         # ---- zone-level caps ------------------------------------------
-        zsp = g_zone_spread[:, g]
-        za = g_zone_anti[:, g]
-        skew_g = g_zone_skew[:, g].to(torch.float32)
+        with trace.span("step.caps"):
+            zsp = g_zone_spread[:, g]
+            za = g_zone_anti[:, g]
+            skew_g = g_zone_skew[:, g].to(torch.float32)
 
-        el = per_zone_max(dok)                                    # [B, Z]
-        zcpa = _sel_rows(zc, zpa_i) > 0                           # [B, Z]
-        el = (el & (~(zpa_on & ztot)[:, None] | zcpa)
-              & ~zdead[:, None])
-        za_i = torch.clamp(za, min=0)
-        zc_an = _sel_rows(zc, za_i).to(torch.float32)             # [B, Z]
-        self_match = g_sel_match[ar, za_i, g]
-        anti_cap = torch.where(
-            self_match[:, None], torch.clamp(1.0 - zc_an, min=0.0),
-            torch.where(zc_an > 0, 0.0, BIGN))
-        anti_cap = torch.where(za[:, None] >= 0, anti_cap, BIGN)  # [B, Z]
+            el = per_zone_max(dok)                                    # [B, Z]
+            zcpa = _sel_rows(zc, zpa_i) > 0                           # [B, Z]
+            el = (el & (~(zpa_on & ztot)[:, None] | zcpa)
+                  & ~zdead[:, None])
+            za_i = torch.clamp(za, min=0)
+            zc_an = _sel_rows(zc, za_i).to(torch.float32)             # [B, Z]
+            self_match = g_sel_match[ar, za_i, g]
+            anti_cap = torch.where(
+                self_match[:, None], torch.clamp(1.0 - zc_an, min=0.0),
+                torch.where(zc_an > 0, 0.0, BIGN))
+            anti_cap = torch.where(za[:, None] >= 0, anti_cap, BIGN)  # [B, Z]
 
-        rowcap_z = _zone_sum(torch.where(active, cap, 0.0), zone1h_safe)
+            rowcap_z = _zone_sum(torch.where(active, cap, 0.0), zone1h_safe)
 
-        zc_sp = torch.where(
-            zsp[:, None] >= 0, _sel_rows(zc, torch.clamp(zsp, min=0)),
-            0).to(torch.float32)                                  # [B, Z]
-        min_sp = torch.where(el, zc_sp, BIGN).amin(dim=1)         # [B]
-        spread_cap = torch.where(
-            zsp[:, None] >= 0, (skew_g + min_sp)[:, None] - zc_sp, BIGN)
-        zone_budget = torch.minimum(anti_cap, torch.clamp(spread_cap, min=0.0))
+            zc_sp = torch.where(
+                zsp[:, None] >= 0, _sel_rows(zc, torch.clamp(zsp, min=0)),
+                0).to(torch.float32)                                  # [B, Z]
+            min_sp = torch.where(el, zc_sp, BIGN).amin(dim=1)         # [B]
+            spread_cap = torch.where(
+                zsp[:, None] >= 0, (skew_g + min_sp)[:, None] - zc_sp, BIGN)
+            zone_budget = torch.minimum(anti_cap, torch.clamp(spread_cap, min=0.0))
 
-        # ---- new-node candidate scoring --------------------------------
-        nr_ratios = torch.where(
-            req_pos[:, None, :],
-            torch.floor((cand_alloc + 1e-6) / req_safe[:, None, :]),
-            BIGN)
-        ppn = nr_ratios.amin(dim=2)                               # [B, C]
-        hcap_new = torch.where((sh >= 0) & (hk > 0), hk, BIGN)
-        take_pn = torch.minimum(ppn, hcap_new[:, None])           # [B, C]
-        take_ok = take_pn[..., None] >= 1.0
+            # ---- new-node candidate scoring ------------------------------
+            nr_ratios = torch.where(
+                req_pos[:, None, :],
+                torch.floor((cand_alloc + 1e-6) / req_safe[:, None, :]),
+                BIGN)
+            ppn = nr_ratios.amin(dim=2)                               # [B, C]
+            hcap_new = torch.where((sh >= 0) & (hk > 0), hk, BIGN)
+            take_pn = torch.minimum(ppn, hcap_new[:, None])           # [B, C]
+            take_ok = take_pn[..., None] >= 1.0
 
-        def lim_ok_cur(prov_used_cur):
-            used_c = torch.gather(prov_used_cur, 1, prov_c)
-            return torch.all(used_c + cand_cap <= lim_c + 1e-6, dim=2)
+            def lim_ok_cur(prov_used_cur):
+                used_c = torch.gather(prov_used_cur, 1, prov_c)
+                return torch.all(used_c + cand_cap <= lim_c + 1e-6, dim=2)
 
-        def head_nodes_cur(prov_used_cur):
-            used_c = torch.gather(prov_used_cur, 1, prov_c)
-            return torch.floor((lim_c - used_c + 1e-6) / cap_nodes_f).amin(dim=2)
+            def head_nodes_cur(prov_used_cur):
+                used_c = torch.gather(prov_used_cur, 1, prov_c)
+                return torch.floor((lim_c - used_c + 1e-6) / cap_nodes_f).amin(dim=2)
 
-        lim_ok = lim_ok_cur(prov_used)
-        new_ok = (Fd_g & take_ok & lim_ok[..., None]
-                  & new_allowed[:, None, None])                   # [B, C, D]
-        new_ok_nolim = Fd_g & take_ok & new_allowed[:, None, None]
-        bfz_d = torch.gather(backfill_eq_z, 1, dom_zone)          # [B, D]
-        nbf_d = torch.gather(net_backfill_frac_z, 1, dom_zone)    # [B, D]
+            lim_ok = lim_ok_cur(prov_used)
+            new_ok = (Fd_g & take_ok & lim_ok[..., None]
+                      & new_allowed[:, None, None])                 # [B, C, D]
+            new_ok_nolim = Fd_g & take_ok & new_allowed[:, None, None]
+            bfz_d = torch.gather(backfill_eq_z, 1, dom_zone)          # [B, D]
+            nbf_d = torch.gather(net_backfill_frac_z, 1, dom_zone)    # [B, D]
 
         def pick(rem, dom_mask, prov_used_cur, tail_rem=None,
                  size_tiebreak=True, pool_rem=None):
             """argmin over (C, D & dom_mask) of price / min(fill, rem),
             where fill is the backfill-aware effective pods-per-node;
             limit feasibility from the CURRENT provisioner usage."""
-            ok_cd = (new_ok_nolim & lim_ok_cur(prov_used_cur)[..., None]
-                     & dom_mask[:, None, :])
-            head_nodes = head_nodes_cur(prov_used_cur)            # [B, C]
-            est_rem = rem if pool_rem is None else pool_rem
-            n_nodes_est = torch.clamp(
-                torch.minimum(est_rem[:, None] / torch.clamp(take_pn, min=1.0),
-                              torch.clamp(head_nodes, 0.0, BIGN)),
-                1.0, BIGN)                                        # [B, C]
-            per_node_backfill = bfz_d[:, None, :] / n_nodes_est[..., None]
-            fill = torch.minimum(ppn[..., None],
-                                 take_pn[..., None] + per_node_backfill)
-            denom = torch.clamp(
-                torch.minimum(fill, torch.clamp(rem, min=1.0)[:, None, None]),
-                min=1.0)
-            pnb_net = per_node_backfill * nbf_d[:, None, :]
-            if tail_rem is not None:
+            with trace.span("step.pick"):
+                ok_cd = (new_ok_nolim & lim_ok_cur(prov_used_cur)[..., None]
+                         & dom_mask[:, None, :])
+                head_nodes = head_nodes_cur(prov_used_cur)            # [B, C]
+                est_rem = rem if pool_rem is None else pool_rem
+                n_nodes_est = torch.clamp(
+                    torch.minimum(est_rem[:, None] / torch.clamp(take_pn, min=1.0),
+                                  torch.clamp(head_nodes, 0.0, BIGN)),
+                    1.0, BIGN)                                        # [B, C]
+                per_node_backfill = bfz_d[:, None, :] / n_nodes_est[..., None]
+                fill = torch.minimum(ppn[..., None],
+                                     take_pn[..., None] + per_node_backfill)
                 denom = torch.clamp(
-                    torch.minimum(
-                        denom,
-                        torch.clamp(tail_rem, min=1.0)[:, None, None] + pnb_net),
+                    torch.minimum(fill, torch.clamp(rem, min=1.0)[:, None, None]),
                     min=1.0)
-            score = torch.where(ok_cd, cand_price / denom, BIG)
-            guard_rem = torch.clamp(rem if tail_rem is None else tail_rem,
-                                    min=1.0)[:, None, None]
-            if size_tiebreak:
-                full_take = torch.where(take_pn[..., None] <= guard_rem,
-                                        take_pn[..., None], 0.0)
-            else:
-                full_take = torch.zeros_like(score)
-            size_key = torch.where(ok_cd, -full_take, BIG)
-            pk = torch.where(ok_cd, cand_price, BIG)
-            flat = lex_argmin(score, size_key, pk, cd_key, batch_dims=1)
-            bc = torch.div(flat, D, rounding_mode="floor")
-            bd = flat % D
-            ok = score.reshape(B, -1)[ar, flat] < BIG
-            return bc, bd, ok
+                pnb_net = per_node_backfill * nbf_d[:, None, :]
+                if tail_rem is not None:
+                    denom = torch.clamp(
+                        torch.minimum(
+                            denom,
+                            torch.clamp(tail_rem, min=1.0)[:, None, None] + pnb_net),
+                        min=1.0)
+                score = torch.where(ok_cd, cand_price / denom, BIG)
+                guard_rem = torch.clamp(rem if tail_rem is None else tail_rem,
+                                        min=1.0)[:, None, None]
+                if size_tiebreak:
+                    full_take = torch.where(take_pn[..., None] <= guard_rem,
+                                            take_pn[..., None], 0.0)
+                else:
+                    full_take = torch.zeros_like(score)
+                size_key = torch.where(ok_cd, -full_take, BIG)
+                pk = torch.where(ok_cd, cand_price, BIG)
+                flat = lex_argmin(score, size_key, pk, cd_key, batch_dims=1)
+                bc = torch.div(flat, D, rounding_mode="floor")
+                bd = flat % D
+                ok = score.reshape(B, -1)[ar, flat] < BIG
+                return bc, bd, ok
 
         # ---- zone-seed (mode B): the whole group lands in ONE zone -----
         if flags["zpa_any"][g]:
-            elb = el & (zone_budget >= 1.0)
-            ok_slots0 = rf & (cap >= 1.0) & _sel_many(elb, zone_safe)
-            has0 = torch.any(ok_slots0, dim=1)
-            free_z = _zone_sum(torch.where(ok_slots0, cap, 0.0), zone1h_safe)
-            budget_z = torch.where(elb, zone_budget, 0.0)
-            place_z = torch.minimum(torch.minimum(free_z, budget_z), cnt[:, None])
-            paid_z = torch.clamp(
-                torch.minimum(cnt[:, None], budget_z) - place_z, min=0.0)
-            elb_d = torch.gather(elb, 1, dom_zone)                # [B, D]
-            ok_cd0 = (new_ok_nolim & lim_ok_cur(prov_used)[..., None]
-                      & elb_d[:, None, :])
-            paid_d = torch.gather(paid_z, 1, dom_zone)
-            ppp_cd = torch.where(
-                ok_cd0,
-                cand_price / torch.clamp(
-                    torch.minimum(take_pn[..., None], paid_d[:, None, :]),
-                    min=1.0),
-                BIG)
-            ppp_d = ppp_cd.amin(dim=1)                            # [B, D]
-            ppp_z = torch.where(dz1h, ppp_d[..., None], BIG).amin(dim=1)
-            purch_z = torch.where(ppp_z < BIG, paid_z, 0.0)
-            unplaced_z = torch.clamp(cnt[:, None] - place_z - purch_z, min=0.0)
-            cost_z = torch.where(
-                elb, torch.clamp(purch_z * ppp_z, max=BIG), BIG)
-            first_slot = torch.where(
-                ok_slots0[..., None] & zone1h, slot_f[None, :, None],
-                BIGN).amin(dim=1)                                 # [B, Z]
-            z_best = lex_argmin(
-                torch.where(elb, unplaced_z, BIGN), cost_z, first_slot,
-                zone_f.expand(B, Z), batch_dims=1)
-            _bc0, bd0, okp0 = pick(cnt, elb_d, prov_used)
-            z_star = torch.where(
-                has0, z_best,
-                torch.where(okp0, _sel_rows(dom_zone, bd0), -1))
-            z_star = torch.where(zone_seed, z_star, -1)
-            el = torch.where(zone_seed[:, None],
-                             el & (zone_ar == z_star[:, None]), el)
+            with trace.span("step.seed"):
+                elb = el & (zone_budget >= 1.0)
+                ok_slots0 = rf & (cap >= 1.0) & _sel_many(elb, zone_safe)
+                has0 = torch.any(ok_slots0, dim=1)
+                free_z = _zone_sum(torch.where(ok_slots0, cap, 0.0), zone1h_safe)
+                budget_z = torch.where(elb, zone_budget, 0.0)
+                place_z = torch.minimum(torch.minimum(free_z, budget_z), cnt[:, None])
+                paid_z = torch.clamp(
+                    torch.minimum(cnt[:, None], budget_z) - place_z, min=0.0)
+                elb_d = torch.gather(elb, 1, dom_zone)                # [B, D]
+                ok_cd0 = (new_ok_nolim & lim_ok_cur(prov_used)[..., None]
+                          & elb_d[:, None, :])
+                paid_d = torch.gather(paid_z, 1, dom_zone)
+                ppp_cd = torch.where(
+                    ok_cd0,
+                    cand_price / torch.clamp(
+                        torch.minimum(take_pn[..., None], paid_d[:, None, :]),
+                        min=1.0),
+                    BIG)
+                ppp_d = ppp_cd.amin(dim=1)                            # [B, D]
+                ppp_z = torch.where(dz1h, ppp_d[..., None], BIG).amin(dim=1)
+                purch_z = torch.where(ppp_z < BIG, paid_z, 0.0)
+                unplaced_z = torch.clamp(cnt[:, None] - place_z - purch_z, min=0.0)
+                cost_z = torch.where(
+                    elb, torch.clamp(purch_z * ppp_z, max=BIG), BIG)
+                first_slot = torch.where(
+                    ok_slots0[..., None] & zone1h, slot_f[None, :, None],
+                    BIGN).amin(dim=1)                                 # [B, Z]
+                z_best = lex_argmin(
+                    torch.where(elb, unplaced_z, BIGN), cost_z, first_slot,
+                    zone_f.expand(B, Z), batch_dims=1)
+                _bc0, bd0, okp0 = pick(cnt, elb_d, prov_used)
+                z_star = torch.where(
+                    has0, z_best,
+                    torch.where(okp0, _sel_rows(dom_zone, bd0), -1))
+                z_star = torch.where(zone_seed, z_star, -1)
+                el = torch.where(zone_seed[:, None],
+                                 el & (zone_ar == z_star[:, None]), el)
 
-        new_ok_z = per_zone_max(torch.any(new_ok, dim=1))         # [B, Z]
-        cap_z = torch.minimum(rowcap_z + torch.where(new_ok_z, BIGN, 0.0),
-                              anti_cap)
-        cap_z = torch.where(el, cap_z, 0.0)
+        with trace.span("step.caps"):
+            new_ok_z = per_zone_max(torch.any(new_ok, dim=1))         # [B, Z]
+            cap_z = torch.minimum(rowcap_z + torch.where(new_ok_z, BIGN, 0.0),
+                                  anti_cap)
+            cap_z = torch.where(el, cap_z, 0.0)
 
         # ---- allocation: rows then new nodes ---------------------------
         def zoned_alloc():
@@ -719,25 +734,29 @@ def _run_scan(consts: dict, init: tuple, NR: int, Z: int, track: bool,
             fundable_new = torch.clamp(per_p.sum(dim=1), max=BIGN)
             rows_z = torch.where(el, rowcap_z, 0.0)
             skew_eff = torch.where(zsp >= 0, skew_g, BIGN)
-            alloc0 = skew_band_fill(
-                zc_sp, rows_z, cap_z, cnt, skew_eff, el).to(torch.float32)
+            with trace.span("step.fill"):
+                alloc0 = skew_band_fill(
+                    zc_sp, rows_z, cap_z, cnt, skew_eff, el).to(torch.float32)
             need_new = torch.clamp(
                 alloc0 - torch.minimum(rows_z, alloc0), min=0.0)
-            funded_new = water_fill(
-                torch.zeros_like(need_new), need_new, fundable_new,
-                el & (need_new > 0)).to(torch.float32)
+            with trace.span("step.fill"):
+                funded_new = water_fill(
+                    torch.zeros_like(need_new), need_new, fundable_new,
+                    el & (need_new > 0)).to(torch.float32)
             cap_f = torch.where(
                 el, torch.minimum(rows_z + funded_new, cap_z), 0.0)
-            alloc1 = skew_band_fill(
-                zc_sp, torch.minimum(rows_z, cap_f), cap_f, cnt, skew_eff,
-                el).to(torch.float32)
+            with trace.span("step.fill"):
+                alloc1 = skew_band_fill(
+                    zc_sp, torch.minimum(rows_z, cap_f), cap_f, cnt, skew_eff,
+                    el).to(torch.float32)
             lvl_min = torch.where(el, zc_sp + alloc1, BIGN).amin(dim=1)
             skew_cap = torch.where(
                 zsp[:, None] >= 0, (lvl_min + skew_g)[:, None] - zc_sp, BIGN)
             cap_z2 = torch.minimum(cap_f, torch.clamp(skew_cap, min=0.0))
-            alloc_z = skew_band_fill(
-                zc_sp, torch.minimum(rows_z, cap_z2), cap_z2, cnt, skew_eff,
-                el).to(torch.float32)                             # [B, Z]
+            with trace.span("step.fill"):
+                alloc_z = skew_band_fill(
+                    zc_sp, torch.minimum(rows_z, cap_z2), cap_z2, cnt,
+                    skew_eff, el).to(torch.float32)               # [B, Z]
             # per-zone prefix allocation over slots in creation order
             capz_slots = torch.where(zone1h, cap[..., None], 0.0)  # [B, NR, Z]
             before = torch.cumsum(capz_slots, dim=1) - capz_slots
@@ -761,36 +780,37 @@ def _run_scan(consts: dict, init: tuple, NR: int, Z: int, track: bool,
             """Append n_nodes slots of candidate bc/domain bd; each takes
             per_node pods except the last which takes last_extra.  Returns
             (state, pods actually placed)."""
-            (res, row_zone, row_dom, row_cand, row_price, active, prov_used,
-             new_take, cursor) = state
-            n_req = n_nodes
-            n_nodes = torch.clamp(
-                torch.minimum(n_nodes, budget_nr - cursor), min=0)
-            in_block = ((slot_idx >= cursor[:, None])
-                        & (slot_idx < (cursor + n_nodes)[:, None]))
-            is_last = slot_idx == (cursor + n_nodes - 1)[:, None]
-            last_take = torch.where(n_nodes >= n_req, last_extra, per_node)
-            blk = torch.where(
-                in_block,
-                torch.where(is_last, last_take[:, None], per_node[:, None]),
-                0.0)
-            new_take = new_take + blk
-            res = torch.where(in_block[..., None],
-                              _sel_rows(cand_alloc, bc)[:, None, :], res)
-            row_zone = torch.where(in_block, _sel_rows(dom_zone, bd)[:, None],
-                                   row_zone)
-            row_dom = torch.where(in_block, bd[:, None], row_dom)
-            row_cand = torch.where(in_block, bc[:, None], row_cand)
-            row_price = torch.where(
-                in_block, cand_price[ar, bc, bd][:, None], row_price)
-            active = active | in_block
-            add = _sel_rows(cand_cap, bc) * n_nodes.to(torch.float32)[:, None]
-            p1h = _sel_rows(prov1h, bc)                           # [B, P]
-            prov_used = torch.where(p1h[..., None],
-                                    prov_used + add[:, None, :], prov_used)
-            state = (res, row_zone, row_dom, row_cand, row_price, active,
-                     prov_used, new_take, cursor + n_nodes)
-            return state, blk.sum(dim=1)
+            with trace.span("step.write"):
+                (res, row_zone, row_dom, row_cand, row_price, active, prov_used,
+                 new_take, cursor) = state
+                n_req = n_nodes
+                n_nodes = torch.clamp(
+                    torch.minimum(n_nodes, budget_nr - cursor), min=0)
+                in_block = ((slot_idx >= cursor[:, None])
+                            & (slot_idx < (cursor + n_nodes)[:, None]))
+                is_last = slot_idx == (cursor + n_nodes - 1)[:, None]
+                last_take = torch.where(n_nodes >= n_req, last_extra, per_node)
+                blk = torch.where(
+                    in_block,
+                    torch.where(is_last, last_take[:, None], per_node[:, None]),
+                    0.0)
+                new_take = new_take + blk
+                res = torch.where(in_block[..., None],
+                                  _sel_rows(cand_alloc, bc)[:, None, :], res)
+                row_zone = torch.where(in_block, _sel_rows(dom_zone, bd)[:, None],
+                                       row_zone)
+                row_dom = torch.where(in_block, bd[:, None], row_dom)
+                row_cand = torch.where(in_block, bc[:, None], row_cand)
+                row_price = torch.where(
+                    in_block, cand_price[ar, bc, bd][:, None], row_price)
+                active = active | in_block
+                add = _sel_rows(cand_cap, bc) * n_nodes.to(torch.float32)[:, None]
+                p1h = _sel_rows(prov1h, bc)                           # [B, P]
+                prov_used = torch.where(p1h[..., None],
+                                        prov_used + add[:, None, :], prov_used)
+                state = (res, row_zone, row_dom, row_cand, row_price, active,
+                         prov_used, new_take, cursor + n_nodes)
+                return state, blk.sum(dim=1)
 
         def limit_headroom(prov_used_cur, bc):
             """Max nodes of candidate bc before its provisioner limit binds."""
@@ -841,12 +861,18 @@ def _run_scan(consts: dict, init: tuple, NR: int, Z: int, track: bool,
         zoned = (zsp >= 0) | (za >= 0) | zpa_on
 
         def normal_flow(state):
-            if zoned_all:
-                take, rem_z = zoned_alloc()
-            elif not zoned_any:
-                take, rem_z = simple_alloc()
-            else:
-                take, rem_z = _select(zoned, zoned_alloc(), simple_alloc())
+            with trace.span("step.alloc"):
+                if zoned_all:
+                    take, rem_z = zoned_alloc()
+                elif not zoned_any:
+                    take, rem_z = simple_alloc()
+                else:
+                    take, rem_z = _select(zoned, zoned_alloc(),
+                                          simple_alloc())
+            with trace.span("step.place"):
+                return place(state, take, rem_z)
+
+        def place(state, take, rem_z):
             out_z = out_s = None
             if zoned_any:
                 # every zone's bulk pick scores against the group's FULL
@@ -893,27 +919,29 @@ def _run_scan(consts: dict, init: tuple, NR: int, Z: int, track: bool,
 
         state, take = normal_flow(state0)
         if flags["hpa_any"][g]:
-            hstate, htake = host_seed_flow(state0)
-            state = _select(host_seed, hstate, state)
-            take = torch.where(host_seed[:, None], htake, take)
+            with trace.span("step.seed"):
+                hstate, htake = host_seed_flow(state0)
+                state = _select(host_seed, hstate, state)
+                take = torch.where(host_seed[:, None], htake, take)
         (res, row_zone, row_dom, row_cand, row_price, active, prov_used,
          new_take, n_used) = state
 
-        total_take = take + new_take                              # [B, NR]
-        res = res - total_take[..., None] * req_g[:, None, :]
-
         # ---- counters -----------------------------------------------------
-        match_g = g_sel_match[:, :, g].to(torch.float32)          # [B, S]
-        selcnt = selcnt + (total_take[..., None]
-                           * match_g[:, None, :]).to(torch.int32)
-        zone1h_safe = torch.clamp(row_zone, min=0)[..., None] == zone_ar
-        placed_z = _zone_sum(torch.where(active, total_take, 0.0),
-                             zone1h_safe)                         # [B, Z]
-        zc = zc + (match_g[..., None] * placed_z[:, None, :]).to(torch.int32)
-        placed = total_take.sum(dim=1)
-        tot = tot + (match_g * placed[:, None]).to(torch.int32)
-        infeasible = infeasible.clone()
-        infeasible[:, g] = torch.round(cnt - placed).to(torch.int32)
+        with trace.span("step.count"):
+            total_take = take + new_take                          # [B, NR]
+            res = res - total_take[..., None] * req_g[:, None, :]
+            match_g = g_sel_match[:, :, g].to(torch.float32)      # [B, S]
+            selcnt = selcnt + (total_take[..., None]
+                               * match_g[:, None, :]).to(torch.int32)
+            zone1h_safe = torch.clamp(row_zone, min=0)[..., None] == zone_ar
+            placed_z = _zone_sum(torch.where(active, total_take, 0.0),
+                                 zone1h_safe)                     # [B, Z]
+            zc = zc + (match_g[..., None]
+                       * placed_z[:, None, :]).to(torch.int32)
+            placed = total_take.sum(dim=1)
+            tot = tot + (match_g * placed[:, None]).to(torch.int32)
+            infeasible = infeasible.clone()
+            infeasible[:, g] = torch.round(cnt - placed).to(torch.int32)
 
         carry = (res, row_zone, row_dom, row_cand, row_price, selcnt, active,
                  n_used, zc, tot, prov_used, infeasible)
@@ -1548,22 +1576,16 @@ class TpuSolver:
         return F, dom_ok
 
     def _enqueue_entries(self, entries: Sequence[dict], zone_key: int,
-                         ct_key: int, device=None):
+                         ct_key: int, device=None, trace=NULL_TRACE):
         """The enqueue half of one dispatch over prepared entries (all at
         one dims bucket) on ``device`` (the solver's by default): uploads,
-        feasibility per distinct input set, then the batched group loop.
-        Returns the device ``(carry, ys)`` with a leading slot axis, and
-        the dispatch's CUDA event pair (None on the host) bracketing its
-        first upload and last launch; nothing here reads the device
-        back."""
+        feasibility per distinct input set, then the batched group loop,
+        whose step parts ``trace`` names (``_run_scan``).  Returns the
+        device ``(carry, ys)`` with a leading slot axis; nothing here
+        reads the device back."""
         if self._faults:
             self._faults.fire("dispatch")  # dispatch_exc raises here
         dev = self.device if device is None else torch.device(device)
-        marks = None
-        if dev.type == "cuda":
-            marks = (torch.cuda.Event(enable_timing=True),
-                     torch.cuda.Event(enable_timing=True))
-            marks[0].record()
         dims0 = entries[0]["dims"]
         if not all(e["dims"] == dims0 for e in entries):
             raise MegaBucketMismatch("megabatch entries span dims buckets")
@@ -1620,10 +1642,7 @@ class TpuSolver:
             k: np.stack([np.asarray(e["np_consts"][k]) for e in entries])
             for k in ("g_zone_spread", "g_zone_anti", "g_zone_paff",
                       "g_host_paff")})
-        carry, ys = _run_scan(consts, tuple(init), NR, Z, track, flags)
-        if marks is not None:
-            marks[1].record()
-        return carry, ys, marks
+        return _run_scan(consts, tuple(init), NR, Z, track, flags, trace)
 
     def _fence(self) -> None:
         """The ``fence`` fault site, fired before every device-to-host read
@@ -1633,26 +1652,14 @@ class TpuSolver:
             if effect is not None and effect.kind == "slow_fence":
                 self._faults.sleep(effect)
 
-    @staticmethod
-    # ktlint: fence books a dispatch's device time after its read-back:
-    # the end event is complete by then, so the wait costs nothing more
-    def _book(marks) -> None:
-        """Book the device time between a dispatch's CUDA event pair
-        (obs/occupancy.py ``device_busy_ms``), once per dispatch."""
-        if marks is not None:
-            marks[1].synchronize()
-            record_device_ms(marks[0].elapsed_time(marks[1]))
-
     # ktlint: fence the one device-to-host read of a dispatch, behind the
     # fence fault site — every serving path reads back through here
-    def _read_back(self, carry, ys, marks=None):
+    def _read_back(self, carry, ys):
         """The read-back half: the one device-to-host read of a dispatch,
-        behind the ``fence`` fault site, booking the dispatch's device
-        time."""
+        behind the ``fence`` fault site."""
         self._fence()
         carry_np = [x.cpu().numpy() for x in carry]
         ys_np = ys.cpu().numpy() if ys is not None else None
-        self._book(marks)
         return carry_np, ys_np
 
     def _run_entries(self, entries: Sequence[dict], zone_key: int,
@@ -1674,8 +1681,8 @@ class TpuSolver:
         full_nr: bool = False,
     ):
         """Build ``(run, entry, NE)``: ``entry`` holds the solve's padded
-        host arrays and ``run(entry)`` enqueues the one-slot group loop,
-        returning the device ``(carry, ys)`` unread.  ``mesh`` pads to the
+        host arrays and ``run(entry, trace=NULL_TRACE)`` enqueues the
+        one-slot group loop, returning the device ``(carry, ys)`` unread.  ``mesh`` pads to the
         mesh's axis divisors and computes feasibility block by block over
         its (pods, types) layout, assembled on the solver's device where
         the scan runs replicated (module docstring)."""
@@ -1695,8 +1702,9 @@ class TpuSolver:
             entry["feas_out"] = self._sharded_feasibility(
                 feas, np_consts, zone_key, ct_key, mesh)
 
-        def run(entry):
-            return self._enqueue_entries([entry], zone_key, ct_key)
+        def run(entry, trace=NULL_TRACE):
+            return self._enqueue_entries([entry], zone_key, ct_key,
+                                         trace=trace)
 
         return run, entry, NE
 
@@ -1777,7 +1785,12 @@ class TpuSolver:
         pays the first time it runs.  ``measure=True`` (benchmarks only:
         production solves pay one execution) runs the prepared dispatch a
         second time, results discarded, and reports that run's wall, from
-        enqueue to its read-back, as ``solve_ms``."""
+        enqueue to its read-back, as ``solve_ms``.
+
+        ``device_execute`` holds ``device_enqueue`` (uploads, feasibility
+        and the group loop's launches, named by part) and
+        ``device_readback`` (the fence and the device-to-host copies: the
+        host blocked on the device)."""
         t0 = time.perf_counter()
         trace = trace or NULL_TRACE
         with trace.span("device_prepare"):
@@ -1785,7 +1798,10 @@ class TpuSolver:
                 self._prepare_dispatch(st, existing_nodes, max_nodes,
                                        track_assignments, mesh, full_nr)
         with trace.span("device_execute", full_nr=full_nr):
-            carry_np, ys_np = self._read_back(*run(entry))
+            with trace.span("device_enqueue"):
+                carry, ys = run(entry, trace)
+            with trace.span("device_readback"):
+                carry_np, ys_np = self._read_back(carry, ys)
         compile_ms = solve_ms = (time.perf_counter() - t0) * 1000.0
         # mark ready the key of the batch that ACTUALLY ran
         self._mark_ready(_dims_key(full_dims if full_nr else est_dims))
@@ -1832,10 +1848,11 @@ class TpuSolver:
             run, entry, NE, est_dims, full_dims, full_nr = \
                 self._prepare_dispatch(st, existing_nodes, max_nodes,
                                        track_assignments, mesh, False)
-            carry, ys, marks = run(entry)  # enqueued, not read
+            with trace.span("device_enqueue"):
+                carry, ys = run(entry, trace)  # enqueued, not read
         return PendingTpuSolve(
             solver=self, st=st, existing_nodes=existing_nodes, NE=NE,
-            carry=carry, ys=ys, marks=marks, t0=t0, track=track_assignments,
+            carry=carry, ys=ys, t0=t0, track=track_assignments,
             est_dims=est_dims, full_dims=full_dims, full_nr=full_nr,
             raise_on_exhaust=raise_on_exhaust,
             solve_kwargs=dict(
@@ -2002,15 +2019,12 @@ class TpuSolver:
         t_starts = [(e["r"].get("trace") or NULL_TRACE).now()
                     for e in entries]
         if mesh is None:
-            carry_b, ys_b, marks = self._enqueue_entries(padded, zone_key,
-                                                         ct_key)
-            marks = [marks] if marks is not None else []
+            carry_b, ys_b = self._enqueue_entries(padded, zone_key, ct_key)
         else:
-            carry_b, ys_b, marks = self._enqueue_sharded(
+            carry_b, ys_b = self._enqueue_sharded(
                 padded, zone_key, ct_key, mesh)
         return PendingMegaSolve(
             solver=self, entries=entries, carry_b=carry_b, ys_b=ys_b,
-            marks=marks,
             t0=t0, t_starts=t_starts, track=track, B=B, B_pad=B_pad,
             mega_key=mega_key, mesh=mesh, registry=registry,
         )
@@ -2042,7 +2056,7 @@ class TpuSolver:
         the host's launches by the shard count for no device work.  A mesh
         over k cards still issues k group loops from this thread.  Returns
         the carry and ys as :class:`ShardedArray` over the slot axis (None
-        for a rank holding no entry) and the blocks' CUDA event pairs."""
+        for a rank holding no entry)."""
         from ..parallel.mesh import Shard, ShardedArray, _rank, slot_sharding
 
         # ktlint: allow[KT011] slot_sharding is memoized per mesh (an
@@ -2058,17 +2072,15 @@ class TpuSolver:
                 runs[-1][2] = idx[0].stop
             else:
                 runs.append([dev, idx[0].start, idx[0].stop])
-        blocks, marks = [], []
+        blocks = []
         for k, (dev, start, stop) in enumerate(runs):
             stream = self._block_stream(dev, k, len(runs))
             with _on_stream(stream):
-                carry, ys, mk = self._enqueue_entries(
+                carry, ys = self._enqueue_entries(
                     padded[start:stop], zone_key, ct_key, device=dev)
             blocks.append(((slice(start, stop),), dev, stream, carry, ys))
-            if mk is not None:
-                marks.append(mk)
         if not blocks:
-            return None, None, marks
+            return None, None
 
         def sharded(pick):
             t0 = pick(blocks[0])
@@ -2081,7 +2093,7 @@ class TpuSolver:
                         for k in range(n_carry))
         ys_b = (sharded(lambda b: b[4]) if blocks[0][4] is not None
                 else None)
-        return carry_b, ys_b, marks
+        return carry_b, ys_b
 
     def solve_many(
         self,
@@ -2282,7 +2294,7 @@ class PendingTpuSolve:
 
     def __init__(self, solver, st, existing_nodes, NE, carry, ys, t0, track,
                  est_dims, full_dims, full_nr, raise_on_exhaust,
-                 solve_kwargs, trace=NULL_TRACE, marks=None) -> None:
+                 solve_kwargs, trace=NULL_TRACE) -> None:
         self.solver = solver
         self.trace = trace
         self.st = st
@@ -2290,7 +2302,6 @@ class PendingTpuSolve:
         self.NE = NE
         self.carry = carry
         self.ys = ys
-        self.marks = marks
         self.t0 = t0
         self.track = track
         self.est_dims = est_dims
@@ -2312,7 +2323,8 @@ class PendingTpuSolve:
     def _resolve(self) -> TpuSolveOutput:
         s = self.solver
         with self.trace.span("device_fence"), _on_stream(self.stream):
-            carry_np, ys_np = s._read_back(self.carry, self.ys, self.marks)
+            with self.trace.span("device_readback"):
+                carry_np, ys_np = s._read_back(self.carry, self.ys)
         elapsed_ms = (time.perf_counter() - self.t0) * 1000.0
         s._mark_ready(_dims_key(self.full_dims if self.full_nr
                                 else self.est_dims))
@@ -2348,13 +2360,12 @@ class PendingMegaSolve:
     ``solve_many`` (an exhausted slot re-solves on the meshed program)."""
 
     def __init__(self, solver, entries, carry_b, ys_b, t0, t_starts, track,
-                 B, B_pad, mega_key, marks=(), mesh=None,
+                 B, B_pad, mega_key, mesh=None,
                  registry=None) -> None:
         self.solver = solver
         self.entries = entries
         self.carry_b = carry_b
         self.ys_b = ys_b
-        self.marks = list(marks)
         self.t0 = t0
         self.t_starts = t_starts
         self.track = track
@@ -2406,8 +2417,6 @@ class PendingMegaSolve:
             with _on_stream(self.stream):
                 rows, self.fence_bytes_read, self.fence_bytes_total = \
                     read_slot_rows(arrays, local_only=per_host)
-            for marks in self.marks:
-                s._book(marks)
             carry_rows = rows[:len(self.carry_b)]
             ys_rows = rows[-1] if self.track else None
         elapsed_ms = (time.perf_counter() - self.t0) * 1000.0

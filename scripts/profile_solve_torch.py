@@ -402,11 +402,18 @@ def stage_table(trace: StageTrace, t0: float, t1: float, events=None,
     walls as ``wall_ms``."""
     segs = segments(trace.spans, t0, t1)
     rows: dict = {}
+
+    def row_of(k):
+        return rows.setdefault(k, {"stage": k, "profiled_wall_ms": 0.0,
+                                   "launches": 0, "kernel_ms": 0.0,
+                                   "copies": 0, "max_idle_ms": 0.0})
+
     for a, b, k in segs:
-        row = rows.setdefault(k, {"stage": k, "profiled_wall_ms": 0.0,
-                                  "launches": 0, "kernel_ms": 0.0,
-                                  "copies": 0, "max_idle_ms": 0.0})
-        row["profiled_wall_ms"] += (b - a) * 1000.0
+        row_of(k)["profiled_wall_ms"] += (b - a) * 1000.0
+    # a stage only the unprofiled run has (a collector pause) keeps its
+    # row, so the rows' walls still sum to that run's wall
+    for k in unprofiled or ():
+        row_of(k)
     if events is not None:
         starts = [a for a, _, _ in segs]
 

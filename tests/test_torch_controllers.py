@@ -510,8 +510,10 @@ def test_fake_cloud_matches_reference(case):
 
 
 #: the series whose reference help text speaks of XLA compiles, cold tiers
-#: or its own change history: the port keeps their names, types and labels
-#: and says what it measures instead (a warm is a signature's first run)
+#: or its own change history, or overstates what the series measures: the
+#: port keeps their names, types and labels and says what it measures
+#: instead (a warm is a signature's first run; the busy share is an upper
+#: bound that holds the host's enqueue)
 REWORDED = ("karpenter_solver_compile_in_progress",
             "karpenter_solver_compile_duration_seconds",
             "karpenter_solver_cold_start_fallbacks_total",
@@ -523,7 +525,8 @@ REWORDED = ("karpenter_solver_compile_in_progress",
             "karpenter_solver_hier_solves_total",
             "karpenter_solver_multihost_fence_bytes_total",
             "karpenter_solver_relax_total",
-            "karpenter_solver_session_adoptions_total")
+            "karpenter_solver_session_adoptions_total",
+            "karpenter_occupancy_device_busy_share")
 
 
 def test_metric_help_text_is_the_reference():

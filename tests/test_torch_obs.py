@@ -7,8 +7,8 @@ inline fraction) and ``obs/protocol.py`` (the session-protocol tap).
 Every scenario is ONE function over a package namespace, driven on both
 packages under each package's own ``FakeClock`` with the same seeded
 traffic and synthetic traces, and the outputs compared.  Tolerance:
-equal.  The port's one addition, the CUDA-event busy source of the
-occupancy accountant, is held on its own (the reference has none).
+equal.  The busy share is the span stream's on every device, held on its
+own below as well.
 """
 
 import importlib
@@ -196,55 +196,41 @@ def test_occupancy_sequence_matches_reference(sample_every):
 
 
 def test_occupancy_busy_from_device_events():
-    """On the card the busy share comes from the dispatches' CUDA events
-    (``record_device_ms`` at each read-back), counted once per dispatch,
-    not from the span sum; the slot and inline gauges stay span-derived."""
+    """The busy share is the device-solve spans' share of the wall, host
+    enqueue included, on every device: the ``dispatch`` and ``fence``
+    spans of the stream count, their ``device_*`` children do not count
+    again, and there is no CUDA-event busy source beside them."""
     from karpenter_tpu_torch import metrics as M
     from karpenter_tpu_torch.obs import occupancy
     from karpenter_tpu_torch.obs.trace import Tracer
     from karpenter_tpu_torch.utils.clock import FakeClock
 
+    assert not hasattr(occupancy, "record_device_ms")
+    assert not hasattr(occupancy, "device_busy_ms")
     clock = FakeClock(0.0)
     reg = M.Registry()
     tracer = Tracer(clock=clock, registry=reg, enabled=True, sample_every=1)
-    acc = occupancy.OccupancyAccountant(reg, clock=clock,
-                                        device_events=True)
+    acc = occupancy.OccupancyAccountant(reg, clock=clock)
     tracer.add_sink(acc.on_trace)
     acc.tick(clock.now())
     with tracer.start("solve") as tr:
         with tr.span("dispatch"):
-            clock.advance(0.5)   # host span time is NOT booked
-    occupancy.record_device_ms(250.0)
-    occupancy.record_device_ms(150.0)
-    clock.advance(1.5)
+            with tr.span("device_execute"), tr.span("device_enqueue"):
+                clock.advance(0.4)
+            clock.advance(0.1)
+        with tr.span("reseat"):
+            clock.advance(0.3)   # host stages outside the spans: not busy
+    clock.advance(1.2)
     acc.tick()
-    assert reg.gauge(M.OCCUPANCY_DEVICE_BUSY).get() == pytest.approx(0.2)
+    assert reg.gauge(M.OCCUPANCY_DEVICE_BUSY).get() == pytest.approx(0.25)
     clock.advance(1.0)
     acc.tick()
     assert reg.gauge(M.OCCUPANCY_DEVICE_BUSY).get() == 0.0
-    occupancy.record_device_ms(5000.0)
-    clock.advance(1.0)
+    with tracer.start("solve") as tr:
+        with tr.span("fence"):
+            clock.advance(5.0)
     acc.tick()
     assert reg.gauge(M.OCCUPANCY_DEVICE_BUSY).get() == 1.0  # clamped
-
-
-def test_cpu_dispatch_books_no_device_time():
-    """A host-device solve records no CUDA events: the busy clock stays
-    put (on the card each dispatch adds its events' elapsed time)."""
-    from karpenter_tpu_torch.models.catalog import generate_catalog
-    from karpenter_tpu_torch.models.pod import PodSpec
-    from karpenter_tpu_torch.models.provisioner import Provisioner
-    from karpenter_tpu_torch.obs.occupancy import device_busy_ms
-    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
-
-    pods = [PodSpec(name=f"p{i}", requests={"cpu": 0.5}, owner_key="d")
-            for i in range(300)]
-    before = device_busy_ms()
-    res = BatchScheduler(backend="tpu", device="cpu").solve(
-        pods, [Provisioner(name="default").with_defaults()],
-        generate_catalog(full=False))
-    assert len(res.assignments) == 300
-    assert device_busy_ms() == before
 
 
 def protocol_run(k) -> dict:

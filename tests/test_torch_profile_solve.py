@@ -163,7 +163,8 @@ def test_stage_rows_sum_to_the_wall(measured):
     rows = {r["stage"]: r for r in table["stages"]}
     assert "other" in rows
     for stage in ("dispatch", "tensorize", "device_prepare",
-                  "device_execute", "extract", "reseat"):
+                  "device_execute", "device_enqueue", "device_readback",
+                  "step.rows", "step.fill", "extract", "reseat"):
         assert stage in rows, stage
     assert abs(sum(r["wall_ms"] for r in rows.values())
                - table["wall_ms"]) < 0.05
