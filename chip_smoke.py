@@ -14,7 +14,10 @@ no result):
    byte-equal, on every case of :func:`step_cases` (ties, all-infeasible
    rows, sentinel and +inf prices, 1 and 3 provisioners, duals up to the
    8.0 cap, a hot provisioner that moves the argmin, tile / slice / large
-   shapes up to 65,536 x 1,024);
+   shapes up to 65,536 x 1,024); both zone fills (``csrc/zone_fill.cu``:
+   ``skew_band_fill``, ``water_fill``) against their plain compositions on
+   the card, equal on every row of :func:`fill_cases` (over 100,000 rows,
+   Z in 1, 2, 3, 4 and 6);
 4. slice — the main path: ``BatchScheduler(backend="auto").solve`` of a
    100,000-pod scale-up (40 zone-spread deployments x 2,500 pods against
    the full catalog) under a provisioner ``limits.cpu`` at 99% of the
@@ -28,7 +31,9 @@ no result):
    events), beside the bound; the price-row entry also at 4,096 x 1,024
    and at 65,536 x 1,024 (two buffers in turn, beyond L2); the price
    loop's score step as the host pays it, fused and through the host
-   price chain with the price-row entry;
+   price chain with the price-row entry; both zone fills and their plain
+   compositions at the burst's shape (1 row, Z = 3) and the megabatch's
+   (32 rows, Z = 3);
 6. parity — a smaller hierarchical batch with a binding limit solved on
    ``cuda`` and on ``cpu``: the node plans must agree; then the reference
    (a ``reference`` line): :data:`LATER_HIER`'s batch, 10 of the slice's
@@ -211,7 +216,7 @@ no result):
     no replay error, the class mix intact) and ``measure_tuning`` (the
     static / learn / judged replays of three captures, one pair; no
     replay error);
-    no hand-written kernel launches there, in process or in the child
+    no price-loop kernel launches there, in process or in the child
     processes (each prints its own counts, zeroed before its work: the
     warm cold start processes, 14(c)'s ranks, the A/B runs); the budget
     flags are printed, not failed on, and a probe that raises fails the
@@ -230,7 +235,7 @@ no result):
     one hard-killed, at least one orphaned session, 0 re-establishes,
     steal adoptions >= orphans, the typed errors and one dead-endpoint
     warning per orphaned client.  Each prints the thread count at its
-    start and end; no hand-written kernel launches, in process or in
+    start and end; no price-loop kernel launches, in process or in
     either sidecar (each prints its counts at shutdown);
 18. fuzz — ``scripts/fuzz_sweep_torch.py``'s runners on the card at cut
     depth (:data:`FUZZ`): (a) the plain, existing-node and kubelet
@@ -248,7 +253,7 @@ no result):
     installed lock sanitizer (uninstalled afterwards): every invariant
     after every step, every node reaped, 0 ``SanitizerError``.  No fuzz
     batch reaches the hierarchical threshold, so the phase launches no
-    hand-written kernel;
+    price-loop kernel;
 19. tools — the repo-level tools on the card, at depth :data:`TOOLS`:
     (a) ``scripts/profile_solve_torch.py``'s measured solve of config 2
     (50,000 pods, ``BatchScheduler(backend="auto")``; tensorize tiers, the
@@ -280,9 +285,10 @@ its guarded device calls' longest wall against its budget (a ``guard``
 line).  Launch counts (the
 hand-written kernels', and the relax and screen programs' runs) are
 zeroed just before each path is driven and read just after; no
-hand-written kernel is on the relax, consolidation, repack,
-serving-request or delta path or 16(c)'s, 17's or 18's, so their kernel
-counts read 0 there (the
+price-loop kernel (:data:`PRICE_LOOP`) is on the relax, consolidation,
+repack, serving-request or delta path or 16(c)'s, 17's or 18's, so
+their counts read 0 there, while the zone fills launch on every zoned
+group step on the card (the
 kernel table adds phase 10(b)'s, 11(a)'s, 12(c)'s, 13(a)'s, 14(a)'s,
 15(c)'s, 16(b)'s and 19's launches to the slice's; 16(b)'s one
 ``packed_scan_scores`` launch is the bench's own kernel-parity check).
@@ -692,15 +698,138 @@ def check_step_entry(f, base, prov, lam) -> float:
     return float((c_k - c_p).abs().max().item()) if c_k.numel() else 0.0
 
 
+#: the price loop's kernel entries (``csrc/packed_score.cu``): off every
+#: path but the hierarchical driver's price loop.  The zone fills
+#: (``csrc/zone_fill.cu``) launch on every zoned group step on the card.
+PRICE_LOOP = ("packed_score", "price_step_score")
+
+
+def price_loop(launches: dict) -> dict:
+    """The price loop's entries of a launch count."""
+    return {name: launches[name] for name in PRICE_LOOP}
+
+
+#: the zone-fill checks' zone counts and leading shapes (a batch's rows
+#: are the product of its leading shape)
+FILL_ZONES = (1, 2, 3, 4, 6)
+FILL_LEADS = ((), (1,), (32,), (4, 8))
+#: rows of each zone count's bulk batch: 5 x 20,480 = 102,400 rows
+FILL_BULK = 20_480
+#: the group step's float32 sentinels: BIGN (unbounded capacity, no
+#: skew) and ops/masks.py's BIG
+BIGN = np.float32(1e9)
+BIG = np.float32(3.4e38)
+
+
+def fill_case(lead, Z: int, seed: int):
+    """Zone-fill inputs of leading shape ``lead`` from one numpy seed:
+    ``(current, rows, cap)`` float32 ``[*lead, Z]``, ``(total, skew)``
+    float32 ``[*lead]`` and ``eligible`` bool ``[*lead, Z]``.  Rows draw
+    ties (every zone at one count), whole and fractional counts,
+    ineligible zones (a few rows with none eligible), zero totals, caps of
+    0, fractions, BIGN and BIG, free rows above the cap, and skews of 1,
+    2, 5, BIGN and BIG.  In a batch of two rows or more the first is the
+    band case whose remainder meets fractional headroom (ROADMAP C2: no
+    pods yet, free rows in zone 0 only, 2 pods at maxSkew 1)."""
+    rng = np.random.default_rng(seed)
+    lead = tuple(lead)
+    shape = lead + (Z,)
+    current = rng.integers(0, 6, shape).astype(np.float32)
+    current += np.where(rng.random(shape) < 0.2,
+                        rng.random(shape) * 3, 0).astype(np.float32)
+    tie = np.asarray(rng.random(lead) < 0.25)
+    current = np.where(tie[..., None], current[..., :1], current)
+    cap = rng.choice(np.array([0, 0.5, 1, 1.34, 2, 5, 9, 40, BIGN, BIG],
+                              dtype=np.float32), shape)
+    rows = rng.choice(np.array([0, 1, 2, 2.5, 3, 6, 40], dtype=np.float32),
+                      shape)
+    rows = np.where(rng.random(shape) < 0.8, np.minimum(rows, cap), rows)
+    total = np.asarray(rng.choice(
+        np.array([0, 1, 2, 3, 7, 20, 61, 2500], dtype=np.float32),
+        lead)).reshape(lead)
+    skew = np.asarray(rng.choice(
+        np.array([1, 2, 5, BIGN, BIG], dtype=np.float32), lead)).reshape(lead)
+    eligible = rng.random(shape) < 0.8
+    eligible &= ~np.asarray(rng.random(lead) < 0.05)[..., None]
+    if int(np.prod(lead, dtype=np.int64)) >= 2:
+        first = (0,) * len(lead)
+        current[first] = 0.0
+        rows[first] = 0.0
+        rows[first + (0,)] = 6.0
+        cap[first] = BIGN
+        total[first], skew[first] = 2.0, 1.0
+        eligible[first] = True
+    return (current.astype(np.float32), rows.astype(np.float32),
+            cap.astype(np.float32), total.astype(np.float32),
+            skew.astype(np.float32), eligible)
+
+
+def check_fill_entries(case) -> int:
+    """Both zone-fill entries on the card (one launch each) against their
+    plain compositions on the card: int32, the same shape, equal on every
+    row, or this fails naming the first row that differs.  Returns the
+    rows checked."""
+    import torch
+
+    from karpenter_tpu_torch.kernels import SKEW_BAND_FILL, WATER_FILL
+    from karpenter_tpu_torch.ops import masks
+
+    cur, rows, cap, total, skew, el = (
+        torch.from_numpy(np.array(a)).cuda() for a in case)
+    before = (SKEW_BAND_FILL.launches, WATER_FILL.launches)
+    got = {"skew_band_fill": masks.skew_band_fill(cur, rows, cap, total,
+                                                  skew, el),
+           "water_fill": masks.water_fill(cur, cap, total, el)}
+    torch.cuda.synchronize()
+    check((SKEW_BAND_FILL.launches, WATER_FILL.launches)
+          == (before[0] + 1, before[1] + 1),
+          "a zone-fill entry did not launch once")
+    want = {"skew_band_fill": masks.skew_band_fill_plain(
+                cur, rows, cap, total, skew, el),
+            "water_fill": masks.water_fill_plain(cur, cap, total, el)}
+    Z = cur.shape[-1]
+    for name, k in got.items():
+        p = want[name]
+        check(k.dtype == torch.int32 and k.shape == cur.shape,
+              f"{name}: {k.dtype} {tuple(k.shape)} for {tuple(cur.shape)}")
+        bad = (k != p).reshape(-1, Z).any(dim=1).nonzero()
+        if bad.numel():
+            r = int(bad[0])
+            flat = [a.reshape(-1, Z)[r].tolist() if a.dim() == cur.dim()
+                    else a.reshape(-1)[r].item() for a in
+                    (cur, rows, cap, total, skew, el)]
+            check(False, f"{name} differs from its plain composition on "
+                  f"{bad.numel()} of {k.numel() // Z} rows; row {r}: inputs "
+                  f"{flat}, kernel {k.reshape(-1, Z)[r].tolist()}, plain "
+                  f"{p.reshape(-1, Z)[r].tolist()}")
+    return cur.numel() // Z
+
+
+def fill_cases(draws: int = 4):
+    """``name -> case`` of the zone-fill checks: ``draws`` batches of each
+    leading shape of :data:`FILL_LEADS`, and one bulk batch of
+    :data:`FILL_BULK` rows, for each zone count of :data:`FILL_ZONES`."""
+    cases = {}
+    for Z in FILL_ZONES:
+        for lead in FILL_LEADS:
+            for d in range(draws):
+                cases[f"z{Z}_{'x'.join(map(str, lead)) or 'row'}_{d}"] = \
+                    fill_case(lead, Z, seed=1000 * Z + 10 * len(lead) + d)
+        cases[f"z{Z}_bulk"] = fill_case((FILL_BULK,), Z, seed=7 + Z)
+    return cases
+
+
 def phase_kernel():
-    """Both entries vs their plain versions on the card, byte-equal, on
-    every case."""
+    """Every entry vs its plain version on the card: the packed-score
+    entries byte-equal on every case, the zone fills equal on every row
+    of :func:`fill_cases`."""
     import torch
 
     from karpenter_tpu_torch.models.tensorize import pack_feasibility
 
     out = {}
-    max_err = {"packed_score": 0.0, "price_step_score": 0.0}
+    max_err = {"packed_score": 0.0, "price_step_score": 0.0,
+               "skew_band_fill": 0.0, "water_fill": 0.0}
     for name, (feas, base, prov, lam) in step_cases(large=True).items():
         f = torch.from_numpy(pack_feasibility(feas)).cuda()
         e1 = check_packed_entry(f, host_row(base, prov, lam))
@@ -711,7 +840,8 @@ def phase_kernel():
                          P=len(lam), byte_equal=True,
                          max_abs_err=max(e1, e2))
         del f
-    emit("kernel", cases=out, max_abs_err=max_err)
+    fill_rows = sum(check_fill_entries(c) for c in fill_cases().values())
+    emit("kernel", cases=out, fill_rows=fill_rows, max_abs_err=max_err)
     return max_err
 
 
@@ -877,6 +1007,44 @@ def _time_step(f, base, prov, mult) -> dict:
     return out
 
 
+def _fill_work(name: str, rows: int, Z: int) -> dict:
+    """The least time of a zone fill of ``rows`` x ``Z``: its inputs read
+    once (float32 zoned inputs, the bool mask, float32 per-row scalars),
+    its int32 output written once; its operations the bisection rounds'
+    float work (per zone and round: the band's target count, 9, or the
+    water level's allocation, 3, and one add of the zone sum; a round's
+    midpoint, 2)."""
+    zoned, per_row = (3, 2) if name == "skew_band_fill" else (2, 1)
+    nbytes = rows * (Z * (4 * zoned + 1 + 4) + 4 * per_row)
+    band = 48 * (10 * Z + 2) if name == "skew_band_fill" else 0
+    ops = rows * (band + 40 * (4 * Z + 2))
+    return _bound(nbytes, ops)
+
+
+def _time_fill(name: str, lead, Z: int) -> dict:
+    """A zone-fill entry and its plain composition on one batch of
+    :func:`fill_case` inputs of leading shape ``lead`` (no one PyTorch call
+    computes the same function: no library yardstick)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import masks
+
+    cur, rows, cap, total, skew, el = (
+        torch.from_numpy(np.array(a)).cuda()
+        for a in fill_case(lead, Z, seed=3))
+    if name == "skew_band_fill":
+        args = (cur, rows, cap, total, skew, el)
+    else:
+        args = (cur, cap, total, el)
+    kernel, plain = (getattr(masks, name),
+                     getattr(masks, f"{name}_plain"))
+    out = _time_fns({"plain": lambda: plain(*args),
+                     "kernel": lambda: kernel(*args)})
+    n = cur.numel() // Z
+    out.update(shape=[n, Z], library_ms=None, **_fill_work(name, n, Z))
+    return out
+
+
 def _time_host_step(f_np, base_np, prov_np, lam) -> dict:
     """The price loop's score step as the host pays it (host clock, ends
     with the result on the host), median ms in two turns: ``fused`` is
@@ -973,8 +1141,16 @@ def phase_timing(st, stats):
     out["packed_65536x1024"] = _time_packed(
         fs, host_row(base_h, np.zeros(1024, dtype=np.int32),
                      np.zeros(1)).cuda())
+    out.update(fill_timings())
     emit("timing", **out)
     return out
+
+
+def fill_timings() -> dict:
+    """Both zone-fill entries at the burst's shape (1 row, Z = 3) and the
+    megabatch's (32 rows, Z = 3), keyed ``<entry>_<rows>x<Z>``."""
+    return {f"{name}_{rows}x3": _time_fill(name, (rows,), 3)
+            for name in ("skew_band_fill", "water_fill") for rows in (1, 32)}
 
 
 def phase_parity(nd: int, per: int):
@@ -1537,8 +1713,8 @@ def phase_controllers(slice_limit, slice_res, pods):
           "the controller's screen step did not run once on the card")
     check(screen["singles_deletable"] > screen["candidates"] // 2,
           "the under-utilised fleet is not mostly deletable")
-    check(not any(screen["kernel_launches"].values()),
-          "a hand-written kernel launched on the screen step")
+    check(not any(price_loop(screen["kernel_launches"]).values()),
+          "a price-loop kernel launched on the screen step")
     emit("controllers_screen", **screen)
 
     reset_name_counters()
@@ -1549,8 +1725,8 @@ def phase_controllers(slice_limit, slice_res, pods):
           "the reconcile's screen did not run on the card")
     check(reconcile["proposed"] is not None,
           "the full reconcile proposed no action")
-    check(not any(reconcile["kernel_launches"].values()),
-          "a hand-written kernel launched on the consolidation path")
+    check(not any(price_loop(reconcile["kernel_launches"]).values()),
+          "a price-loop kernel launched on the consolidation path")
     check(not reconcile["settled_faults"],
           f"the settled cluster is unsound: {reconcile['settled_faults']}")
     del _state
@@ -1564,8 +1740,8 @@ def phase_controllers(slice_limit, slice_res, pods):
         catalog, REPACK_SIZES["converge"], "auto", None)
     converge_s = time.perf_counter() - t0
     repack["kernel_launches"] = {k.name: k.launches for k in kernels.ALL}
-    check(not any(repack["kernel_launches"].values()),
-          "a hand-written kernel launched on the repack path")
+    check(not any(price_loop(repack["kernel_launches"]).values()),
+          "a price-loop kernel launched on the repack path")
     check(repack["pending_end"] == 0, "pods left pending after the repack")
     faults = cluster_faults(state)
     check(not faults, f"the repacked cluster is unsound: {faults[:5]}")
@@ -1785,8 +1961,8 @@ def serving_megabatch(catalog):
     check(reg.counter(SOLVER_COLD_FALLBACKS).get({"backend": "native"})
           + reg.counter(SOLVER_COLD_FALLBACKS).get({"backend": "oracle"})
           == 0, "a cold fallback was counted")
-    check(not any(k.launches for k in kernels.ALL),
-          "a hand-written kernel launched on the serving flushes")
+    check(not any(price_loop(kernels.counts()).values()),
+          "a price-loop kernel launched on the serving flushes")
     # the 32-flush on the host
     host = BatchScheduler(backend="auto", device="cpu")
     host_res, cpu_ms = flush(host, clients, provs, catalog)
@@ -2262,6 +2438,16 @@ def injected_hang() -> dict:
     finally:
         os.environ.pop("KT_FAULTS", None)
     sched._guard.probe_interval_s = 0.25
+    # the probe answers only once the latch is read: the host tier's serve
+    # can outlast the 0.25 s interval, and a recovery before the read
+    # would hide the latch
+    probe, latch_read = sched._guard.probe_fn, threading.Event()
+
+    def held_probe():
+        latch_read.wait(60.0)
+        probe()
+
+    sched._guard.probe_fn = held_probe
     names_from()
     t0 = time.perf_counter()
     res = sched.solve(pods, provs, catalog)
@@ -2270,6 +2456,7 @@ def injected_hang() -> dict:
         {"kind": "device_hang", "site": "fence"}) - injected0
     hangs = reg.counter(metrics.SOLVER_DEVICE_HANGS).get()
     healthy_after = reg.gauge(metrics.SOLVER_DEVICE_HEALTHY).get()
+    latch_read.set()
     degraded = {dict(k)["backend"]: v for k, v in
                 reg.counter(metrics.SOLVER_DEGRADED_SOLVES).values.items()}
     check(len(res.assignments) == len(pods) and not res.infeasible,
@@ -4088,8 +4275,9 @@ def bench_probes() -> dict:
     check(rec["tuning_replay_errors"] == 0,
           f"{rec['tuning_replay_errors']} replayed requests errored in the "
           "tuning runs")
-    check(not any(launches.values()) and not any(children.values()),
-          f"a hand-written kernel launched on a bench probe's path: "
+    check(not any(price_loop(launches).values())
+          and not any(price_loop(children).values()),
+          f"a price-loop kernel launched on a bench probe's path: "
           f"{launches} in process, {children} in the children")
     return dict(rec, probe_s=walls, launches=launches,
                 child_launches=children,
@@ -4264,8 +4452,9 @@ def phase_resilience():
     check(all(set(c) == set(launches) for c in restart["server_launches"]),
           f"a sidecar counted {restart['server_launches']}, not every "
           "kernel")
-    check(not any(launches.values()) and not any(children.values()),
-          f"a hand-written kernel launched on a resilience path: "
+    check(not any(price_loop(launches).values())
+          and not any(price_loop(children).values()),
+          f"a price-loop kernel launched on a resilience path: "
           f"{launches} in process, {children} in the sidecars")
     emit("resilience", launches=launches, sidecar_launches=children,
          phase_s=time.perf_counter() - t_phase)
@@ -4419,8 +4608,8 @@ def phase_fuzz():
     t0 = time.perf_counter()
     emit("fuzz_battle", **fuzz_battle(), phase_wall_s=time.perf_counter() - t0)
     launches = kernels.counts()
-    check(not any(launches.values()),
-          f"a hand-written kernel launched on a fuzz path: {launches}")
+    check(not any(price_loop(launches).values()),
+          f"a price-loop kernel launched on a fuzz path: {launches}")
     emit("fuzz", launches=launches, phase_s=time.perf_counter() - t_phase)
     guard_clean("fuzz")
     return launches
@@ -4690,7 +4879,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    replaces = "karpenter_tpu/solver/hierarchy.py:388"
+    score = "karpenter_tpu/solver/hierarchy.py:388"
+    fills = "none (karpenter_tpu/ops/masks.py, fused by XLA)"
     table = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -4709,9 +4899,12 @@ def main() -> int:
         "bound_by": timing[key]["bound_by"],
         "library_ms": timing[key]["library_ms"],
         "parity": "byte-equal",
-    } for name, kernel, key in (
-        ("packed_score", kernels.PACKED_SCORE, "packed"),
-        ("price_step_score", kernels.PRICE_STEP_SCORE, "step"))]}
+    } for name, kernel, key, replaces in (
+        ("packed_score", kernels.PACKED_SCORE, "packed", score),
+        ("price_step_score", kernels.PRICE_STEP_SCORE, "step", score),
+        ("skew_band_fill", kernels.SKEW_BAND_FILL, "skew_band_fill_1x3",
+         fills),
+        ("water_fill", kernels.WATER_FILL, "water_fill_1x3", fills))]}
     RECORD["kernels"] = table["kernels"]
     RECORD["wall_s"] = time.perf_counter() - t_start
     # what is left running when the script returns: non-daemon threads

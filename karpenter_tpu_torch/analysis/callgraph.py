@@ -49,17 +49,19 @@ from .ktlint import SourceFile, dotted_name, file_nodes
 
 #: bump when the summary format changes — stale caches are discarded, never
 #: migrated (the extraction is cheap; correctness of the cache is not)
-SUMMARY_VERSION = 4  # v4: the port's torch sync vocabulary (KT001/KT013)
+#: v4: the port's torch sync vocabulary (KT001/KT013); v5: the zone fills
+#: joined DEVICE_CALLS
+SUMMARY_VERSION = 5
 
 #: parameter names treated as device-resident by convention (KT001's taint):
 #: the scan's carry and per-group takes
 TAINT_PARAMS = {"carry", "ys"}
 
 #: calls whose result lives on the card: the group-step scan, the
-#: packed-score kernel entries and the device programs
+#: packed-score and zone-fill kernel entries and the device programs
 DEVICE_CALLS = frozenset({
     "_run_scan", "packed_scan_scores", "price_step_scores",
-    "_relax_program", "_screen_program",
+    "skew_band_fill", "water_fill", "_relax_program", "_screen_program",
 })
 
 #: tensor methods that copy a device value to the host (and block on it)
@@ -285,7 +287,7 @@ class _TaintScan:
     A name is device-resident when it is bound from a device value: a
     ``torch.*`` constructor given ``device=``, ``.to(<device>)`` or
     ``.cuda()``, a call of :data:`DEVICE_CALLS` (the group-step scan, the
-    packed-score kernel entries, the device programs) or of a module-level
+    packed-score and zone-fill kernel entries, the device programs) or of a module-level
     compiled callable, a parameter named in :data:`TAINT_PARAMS`, or any
     expression over such a name.  Metadata reads (``.shape``, ``.dtype``,
     ``.device``, ``.size()``, ``len()``) and the results of the host reads

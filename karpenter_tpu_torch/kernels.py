@@ -200,8 +200,24 @@ PRICE_STEP_SCORE = Kernel(
     "price_step_score", PACKED_SCORE_LIB, "price_step_score_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
+#: csrc/zone_fill.cu: the group step's zone fills, one launch each
+ZONE_FILL_LIB = Library("zone_fill", "zone_fill.cu")
+
+#: ops/masks.py::skew_band_fill on the card — current, rows, cap f32
+#: [n, Z], total and skew f32 [n], eligible bool [n, Z] -> i32 [n, Z]
+SKEW_BAND_FILL = Kernel(
+    "skew_band_fill", ZONE_FILL_LIB, "skew_band_fill_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+#: ops/masks.py::water_fill on the card — current, cap f32 [n, Z], total
+#: f32 [n], eligible bool [n, Z] -> i32 [n, Z]
+WATER_FILL = Kernel(
+    "water_fill", ZONE_FILL_LIB, "water_fill_launch",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
 #: every kernel entry of the port
-ALL: List[Kernel] = [PACKED_SCORE, PRICE_STEP_SCORE]
+ALL: List[Kernel] = [PACKED_SCORE, PRICE_STEP_SCORE, SKEW_BAND_FILL,
+                     WATER_FILL]
 
 
 def libraries(kernels: Sequence[Kernel] = ()) -> List[Library]:

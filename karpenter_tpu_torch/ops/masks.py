@@ -10,7 +10,10 @@ request-slot axis) and works along its LAST axis; per-row scalars
 
 Counterparts of the reference package's ``ops/masks.py`` with the same
 constants: 40 bisection rounds in :func:`water_fill`, 48 in
-:func:`skew_band_fill`, and the ``BIG = 3.4e38`` float32 sentinel.
+:func:`skew_band_fill`, and the ``BIG = 3.4e38`` float32 sentinel.  The two
+fills dispatch by device: on CUDA tensors each is one launch of a
+hand-written kernel (``csrc/zone_fill.cu``), elsewhere its plain PyTorch
+body (``*_plain``), which the kernel reproduces bit for bit.
 """
 
 from __future__ import annotations
@@ -58,7 +61,22 @@ def water_fill(current: torch.Tensor, cap: torch.Tensor, total: torch.Tensor,
     form), bounded by per-zone ``cap``; ineligible zones get 0.
 
     Returns alloc [..., Z] int32 with sum(alloc) <= total (shortfall means
-    capacity ran out).  40 rounds of bisection on the common level."""
+    capacity ran out).  40 rounds of bisection on the common level.
+
+    On CUDA tensors this is one launch of the hand-written kernel
+    (``csrc/zone_fill.cu``, ``water_fill_launch``), bit for bit
+    :func:`water_fill_plain`; other tensors take the plain version."""
+    if current.device.type == "cuda":
+        from ..kernels import WATER_FILL
+
+        return _fill_on_card(WATER_FILL, (current, cap), (total,), eligible)
+    return water_fill_plain(current, cap, total, eligible)
+
+
+def water_fill_plain(current: torch.Tensor, cap: torch.Tensor,
+                     total: torch.Tensor, eligible: torch.Tensor
+                     ) -> torch.Tensor:
+    """:func:`water_fill` as a composition of PyTorch operations."""
     totalf = total.to(torch.float32)
     tot_z = totalf.unsqueeze(-1)
     cur = torch.where(eligible, current.to(torch.float32), BIG)
@@ -111,7 +129,25 @@ def skew_band_fill(current: torch.Tensor, rows: torch.Tensor, cap: torch.Tensor,
     Final counts live in a band [t, t+skew] (capacity permitting); each
     zone's count is pushed toward ``current+rows`` WITHIN the band, and t
     is bisected (48 rounds) so the allocation sums to ``total``.  Leftover
-    units level across the remaining band headroom via :func:`water_fill`."""
+    units level across the remaining band headroom via :func:`water_fill`.
+
+    On CUDA tensors this is one launch of the hand-written kernel
+    (``csrc/zone_fill.cu``, ``skew_band_fill_launch``), bit for bit
+    :func:`skew_band_fill_plain`; other tensors take the plain version."""
+    if current.device.type == "cuda":
+        from ..kernels import SKEW_BAND_FILL
+
+        return _fill_on_card(SKEW_BAND_FILL, (current, rows, cap),
+                             (total, skew), eligible)
+    return skew_band_fill_plain(current, rows, cap, total, skew, eligible)
+
+
+def skew_band_fill_plain(current: torch.Tensor, rows: torch.Tensor,
+                         cap: torch.Tensor, total: torch.Tensor,
+                         skew: torch.Tensor, eligible: torch.Tensor
+                         ) -> torch.Tensor:
+    """:func:`skew_band_fill` as a composition of PyTorch operations (its
+    remainder through :func:`water_fill_plain`)."""
     cur = current.to(torch.float32)
     capf = torch.where(eligible, cap.to(torch.float32), 0.0)
     rowsf = torch.minimum(torch.where(eligible, rows.to(torch.float32), 0.0), capf)
@@ -144,8 +180,50 @@ def skew_band_fill(current: torch.Tensor, rows: torch.Tensor, cap: torch.Tensor,
     upper = torch.minimum(torch.maximum(lo.unsqueeze(-1) + skew_z, cur), fmax)
     headroom = torch.clamp(upper - (cur + alloc), min=0.0)
     rem = torch.clamp(totalf - alloc.sum(dim=-1), min=0.0)
-    alloc = alloc + water_fill(cur + alloc, headroom, rem, eligible)
+    alloc = alloc + water_fill_plain(cur + alloc, headroom, rem, eligible)
     return torch.clamp(alloc, min=0.0).to(torch.int32)
+
+
+def _fill_on_card(kernel, zoned, per_row, eligible: torch.Tensor
+                  ) -> torch.Tensor:
+    """Launch a ``csrc/zone_fill.cu`` entry on the current stream: the
+    ``zoned`` [..., Z] inputs and the ``per_row`` [...] ones as float32,
+    ``eligible`` as bool, each broadcast to its full shape and made
+    contiguous only where it is not already.  Returns int32 [..., Z]."""
+    dev = zoned[0].device
+    if any(t.device != dev for t in (*zoned, *per_row, eligible)):
+        raise ValueError(
+            f"{kernel.name}: tensors on "
+            f"{[str(t.device) for t in (*zoned, *per_row, eligible)]}; all "
+            "must be on one CUDA device")
+    shape = zoned[0].shape
+    if (any(t.shape != shape for t in (*zoned[1:], eligible))
+            or any(t.shape != shape[:-1] for t in per_row)):
+        shape = torch.broadcast_shapes(
+            *(t.shape for t in (*zoned, eligible)),
+            *(t.shape + (1,) for t in per_row))
+
+    def dense(t, full, dtype):
+        t = t.to(dtype)
+        return (t if t.shape == full else t.expand(full)).contiguous()
+
+    args = ([dense(t, shape, torch.float32) for t in zoned]
+            + [dense(t, shape[:-1], torch.float32) for t in per_row]
+            + [dense(eligible, shape, torch.bool)])
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    Z = shape[-1] if shape else 0
+    n = out.numel() // Z if Z else 0
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = kernel.launcher()(*(t.data_ptr() for t in args), out.data_ptr(),
+                               n, Z, stream)
+    if rc != 0:  # also Z past the kernel's kMaxZones
+        raise RuntimeError(
+            f"{kernel.name} launch failed: CUDA error {rc} (Z={Z})")
+    kernel.launches += 1
+    return out
 
 
 def prefix_allocate(cap: torch.Tensor, quota: torch.Tensor) -> torch.Tensor:

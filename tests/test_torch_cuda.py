@@ -11,7 +11,11 @@ Both entries of ``csrc/packed_score.cu`` must be byte-equal to their plain
 versions: ``packed_scan_scores`` on random rows, at 65,536 x 1,024 (beyond
 L2), at every base-pointer offset mod 16, and past the shared-memory cap
 (the unstaged variant); ``price_step_scores`` on the CPU suite's cases
-(``chip_smoke.step_cases``) and at every offset.  The plain-PyTorch device
+(``chip_smoke.step_cases``) and at every offset.  Both entries of
+``csrc/zone_fill.cu`` (``skew_band_fill``, ``water_fill``) must equal their
+plain compositions on the card on every row of over 100,000 fuzzed rows,
+and a config-2 solve plans the same with them as with the plain bodies,
+launching each once per fill call.  The plain-PyTorch device
 programs give the same bits on ``cuda`` as on ``cpu``: the relax program
 (and its exp) and the consolidation screen.  The controllers' repack loop
 makes the same decisions on ``cuda`` as on ``cpu``, and so do the serving
@@ -518,7 +522,11 @@ def test_cold_restart_children_populate_then_load_the_cache(cuda):
     assert rec["cold_restart_fleet_replicas"] == 2
     assert rec["cold_restart_nvcc_s"] > 0
     assert rec["cold_restart_load_s"] is not None
-    assert launches == {k.name: 0 for k in kernels.ALL}
+    # the warm's zone-spread profile runs zoned group steps on the card,
+    # and each launches the zone fills (csrc/zone_fill.cu)
+    price_loop = ("packed_score", "price_step_score")
+    assert set(launches) == {k.name for k in kernels.ALL}
+    assert {k: launches[k] for k in price_loop} == dict.fromkeys(price_loop, 0)
 
 
 _CACHED_WARM = """
@@ -600,8 +608,105 @@ def test_hier_demo_contended_solve_on_the_card_matches_cpu(cuda):
     run = hd.run(device=None, nd=4, per=500, verbose=False)
     stats = run["stats"]
     assert stats["price_iters"] >= 1
-    assert run["launches"] == {"packed_score": 0,
-                               "price_step_score": stats["price_iters"]}
+    launches = run["launches"]
+    assert {k: launches[k] for k in ("packed_score", "price_step_score")} \
+        == {"packed_score": 0, "price_step_score": stats["price_iters"]}
     cpu, _stats = hd.contended("cpu", run["pods"], run["limit_cpu"],
                                run["names_at"])
     assert fz.same_plan(run["result"], cpu)
+
+
+# ---- the zone fills (csrc/zone_fill.cu) ------------------------------------
+
+
+@pytest.mark.parametrize("Z", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("lead", [(), (1,), (32,), (4, 8)],
+                         ids=["row", "1", "32", "4x8"])
+def test_zone_fills_equal_the_plain_composition(cuda, lead, Z):
+    """Both fill entries, one launch each, equal to their plain PyTorch
+    compositions on the card on every row: ties, ineligible zones, zero
+    totals, fractional band headroom, skew at BIG, BIG / 1e9 caps."""
+    import chip_smoke as cs
+
+    for draw in range(8):
+        cs.check_fill_entries(cs.fill_case(lead, Z, seed=97 * Z + draw))
+
+
+def test_zone_fills_over_100k_fuzzed_rows(cuda):
+    import chip_smoke as cs
+
+    rows = sum(cs.check_fill_entries(cs.fill_case((cs.FILL_BULK,), Z,
+                                                  seed=11 + Z))
+               for Z in cs.FILL_ZONES)
+    assert rows >= 100_000
+
+
+def test_zone_fills_take_any_layout_and_dtype(cuda):
+    """Broadcast, non-contiguous, integer and non-bool inputs are made
+    float32 / bool and dense by the wrapper, as the plain bodies take
+    them."""
+    from karpenter_tpu_torch.ops import masks
+
+    rng = np.random.default_rng(3)
+    cur = torch.from_numpy(rng.integers(0, 5, (6, 3)).astype(np.int32))
+    cap = torch.full((3, 6), 7.0).t()  # non-contiguous [6, 3]
+    rows = torch.tensor([2.0, 0.0, 1.0])  # broadcast over the rows
+    total = torch.from_numpy(rng.integers(0, 9, 6).astype(np.int64))
+    skew = torch.tensor(1.0)
+    el = torch.from_numpy(rng.random((6, 3)) < 0.8)
+    args = [t.to(cuda) for t in (cur, rows, cap, total, skew, el)]
+    got = masks.skew_band_fill(*args)
+    want = masks.skew_band_fill_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    got = masks.water_fill(args[0], args[2], args[3], args[5])
+    assert torch.equal(got, masks.water_fill_plain(args[0], args[2], args[3],
+                                                   args[5]))
+    empty = masks.water_fill(*(torch.zeros(0, 3, device=cuda),) * 2,
+                             torch.zeros(0, device=cuda),
+                             torch.zeros(0, 3, dtype=torch.bool, device=cuda))
+    assert empty.shape == (0, 3) and empty.dtype == torch.int32
+
+
+def _config2_plan(monkeypatch, plain: bool):
+    import bench_torch as bt
+    import chip_smoke as cs
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.ops import masks
+    from karpenter_tpu_torch.solver import tpu
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    with monkeypatch.context() as m:
+        if plain:
+            for mod in (masks, tpu):
+                m.setattr(mod, "skew_band_fill", masks.skew_band_fill_plain)
+                m.setattr(mod, "water_fill", masks.water_fill_plain)
+        pods, provs, catalog = bt.build_scenario()
+        sched = BatchScheduler(backend="tpu", compile_behind=False,
+                               device="cuda")
+        try:
+            sched.solve(pods, provs, catalog)  # the allocator's growth
+            cs.names_from()
+            kernels.reset_counts()
+            res = sched.solve(pods, provs, catalog)
+            torch.cuda.synchronize()
+            return res, kernels.counts()
+        finally:
+            sched.stop_warms()
+
+
+def test_config2_solve_plans_the_same_with_the_fill_kernels(cuda,
+                                                           monkeypatch):
+    """Config 2 (20 zone-spread deployments x 2,500 pods, the full
+    catalog) on the card: one solve launches each zone fill once per fill
+    call of its 20 zone-spread group steps (three band fills and one water
+    fill a step) and plans node for node as the plain bodies do."""
+    import chip_smoke as cs
+
+    res_k, launches_k = _config2_plan(monkeypatch, plain=False)
+    res_p, launches_p = _config2_plan(monkeypatch, plain=True)
+    assert launches_k["skew_band_fill"] == 60
+    assert launches_k["water_fill"] == 20
+    assert launches_p["skew_band_fill"] == launches_p["water_fill"] == 0
+    assert cs.plan(res_k) == cs.plan(res_p)
+    assert res_k.assignments == res_p.assignments
+    assert res_k.infeasible == res_p.infeasible

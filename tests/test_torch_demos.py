@@ -154,7 +154,8 @@ def test_hier_replay_on_another_device_gives_the_plan(hier_runs):
     assert stats["price_iters"] == run["stats"]["price_iters"]
     assert fz.plan(res) == fz.plan(run["result"])
     # no card here: the price loop's score step ran its plain version
-    assert run["launches"] == {"packed_score": 0, "price_step_score": 0}
+    assert run["launches"] == {"packed_score": 0, "price_step_score": 0,
+                               "skew_band_fill": 0, "water_fill": 0}
 
 
 # ---- slo --------------------------------------------------------------------

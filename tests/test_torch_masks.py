@@ -5,7 +5,9 @@ outputs (allocations, argmin indices, bit tests) must match EXACTLY.  The
 cases carry the shapes the solve feeds these ops: ties, ineligible zones,
 zero totals, and the BIG / 1e9 "unbounded" sentinels.  Each op is also run
 batched (a leading slot axis, as the port's step calls it) and must equal
-its row-by-row results.
+its row-by-row results.  On the CPU the two fills run their plain bodies
+and launch no kernel (the kernel, ``csrc/zone_fill.cu``, is held to those
+bodies on the card by ``tests/test_torch_cuda.py``).
 """
 
 import jax.numpy as jnp
@@ -158,3 +160,74 @@ def test_band_remainder_takes_a_zone_with_whole_headroom():
                          torch.tensor([[0.67, 0.67, 0.67]]),
                          torch.tensor([2.0]), el)
     assert got.tolist() == [[1, 1, 0]]
+
+
+def _fill_launches():
+    from karpenter_tpu_torch.kernels import SKEW_BAND_FILL, WATER_FILL
+
+    return SKEW_BAND_FILL.launches, WATER_FILL.launches
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_cpu_fills_take_the_plain_bodies(seed):
+    rows_in = [_zone_case(seed + 10 * b) for b in range(3)]
+    cur, rows, cap, total, skew, el = [
+        torch.from_numpy(np.stack([r[i] for r in rows_in])) for i in range(6)]
+    before = _fill_launches()
+    assert torch.equal(ops.skew_band_fill(cur, rows, cap, total, skew, el),
+                       ops.skew_band_fill_plain(cur, rows, cap, total, skew,
+                                                el))
+    assert torch.equal(ops.water_fill(cur, cap, total, el),
+                       ops.water_fill_plain(cur, cap, total, el))
+    assert _fill_launches() == before
+
+
+def test_cpu_spread_solve_launches_no_fill_kernel():
+    """A zone-spread solve on the CPU runs its fills through the plain
+    bodies: the kernel entries count no launch."""
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.models import labels as L
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.models.pod import (
+        LabelSelector,
+        PodSpec,
+        TopologySpreadConstraint,
+    )
+    from karpenter_tpu_torch.models.provisioner import Provisioner
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    pods = [PodSpec(name=f"d{d}-{i}", labels={"app": f"d{d}"},
+                    requests={"cpu": 0.5, "memory": 2**30},
+                    topology_spread=[TopologySpreadConstraint(
+                        1, L.ZONE, "DoNotSchedule",
+                        LabelSelector.of({"app": f"d{d}"}))],
+                    owner_key=f"d{d}")
+            for d in range(2) for i in range(30)]
+    sched = BatchScheduler(backend="tpu", compile_behind=False, device="cpu")
+    before = kernels.counts()
+    res = sched.solve(pods, [Provisioner(name="default").with_defaults()],
+                      generate_catalog(full=False))
+    sched.stop_warms()
+    assert len(res.assignments) == len(pods)
+    assert kernels.counts() == before
+    assert {k: before[k] for k in ("skew_band_fill", "water_fill")} == {
+        "skew_band_fill": 0, "water_fill": 0}
+
+
+def test_zone_fill_entries_are_registered():
+    from karpenter_tpu_torch import kernels
+
+    assert kernels.SKEW_BAND_FILL in kernels.ALL
+    assert kernels.WATER_FILL in kernels.ALL
+    lib = kernels.SKEW_BAND_FILL.library
+    assert kernels.WATER_FILL.library is lib is kernels.ZONE_FILL_LIB
+    assert lib.name == "zone_fill" and lib.source.name == "zone_fill.cu"
+    assert lib.source.is_file()
+    assert lib in kernels.libraries()
+    text = lib.source.read_text()
+    for k in (kernels.SKEW_BAND_FILL, kernels.WATER_FILL):
+        assert f'extern "C" int {k.symbol}(' in text
+        assert k.name in kernels.counts()
+    # the source includes only the CUDA runtime headers: no PyTorch build
+    includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
+    assert includes == ["#include <cuda_runtime.h>", "#include <stdint.h>"]

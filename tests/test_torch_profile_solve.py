@@ -214,7 +214,9 @@ def test_hierarchical_stage_table_names_the_driver_stages():
     assert table["price_iters"] == sink["hier_stats"]["price_iters"] >= 1
     assert table["blocks"] == 8
     assert table["kernel_launches"] == {"packed_score": 0,
-                                        "price_step_score": 0}
+                                        "price_step_score": 0,
+                                        "skew_band_fill": 0,
+                                        "water_fill": 0}
     assert abs(sum(r["wall_ms"] for r in table["stages"])
                - table["wall_ms"]) < 0.05
 
@@ -253,7 +255,8 @@ def test_cold_splits_a_fresh_processs_first_solve():
                 "total_ms"):
         assert out[key] >= 0, key
     assert out["served_cold"] is False
-    assert out["launches"] == {"packed_score": 0, "price_step_score": 0}
+    assert out["launches"] == {"packed_score": 0, "price_step_score": 0,
+                               "skew_band_fill": 0, "water_fill": 0}
     assert out["process_wall_ms"] >= out["total_ms"]
 
 
