@@ -37,6 +37,15 @@ latches in the time of one flat solve.  A wave that trips the guard counts
 path serves it from a host tier while the device is latched unhealthy.
 Unlike the reference, no other wave failure is caught here: there is no
 compile to wait for, so a fault surfaces to the caller.
+
+A traced request names the hierarchical solve's parts on its trace: ``hier.partition``
+(components, block packing, budgets), ``hier.entries`` (every block-entry
+build), ``hier.wave`` (every block wave: the dispatch's ``device_execute``
+with the group step's ``step.*`` parts, and one ``extract`` per block),
+``hier.price`` (each price iteration's dual bookkeeping and score step),
+``hier.merge`` (the merge and the exact limit enforcement), ``hier.repair``
+(the straggler re-seat) and ``hier.tail`` (the cross-block tail repack).
+The re-seats' flat solves open their own spans inside the last two.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from ..metrics import (
     HIER_SOLVES,
     Registry,
 )
-from ..obs.trace import NULL_TRACE
+from ..obs.trace import NULL_TRACE, gc_spans
 from .types import SimNode, SolveResult
 
 logger = logging.getLogger(__name__)
@@ -260,7 +269,8 @@ def build_block_entries(
             consts["cand_price"] = cand_price
         entries.append(dict(
             r=dict(st=st, existing_nodes=(), max_nodes=int(budget),
-                   track_assignments=True, trace=trace or NULL_TRACE),
+                   track_assignments=True, trace=trace or NULL_TRACE,
+                   groups=np.nonzero(mask)[0]),
             np_consts=consts, feas=feas0, np_init=np_init0, dims=dims, NE=0,
         ))
     return entries, base
@@ -580,27 +590,28 @@ def _solve_hierarchical(
         trace=trace,
     )
     t_part0 = time.perf_counter()
-    comps = coupling_components(st)
-    # a meshed scheduler's block waves are slot-sharded megabatches: at
-    # most as many blocks as the mesh's sharded rung ladder holds
-    mesh = scheduler.mesh
-    max_blocks = (MEGA_MAX_SLOTS if mesh is None else max_mega_slots(mesh))
-    if len(comps) < 2 or max_blocks < 2:
-        _record(registry, "fallback_structure")
-        return None
-    masks = partition_blocks(st, comps, max_blocks)
-    if len(masks) < 2:
-        _record(registry, "fallback_structure")
-        return None
-    budgets = block_budgets(st, masks)
+    with trace.span("hier.partition"):
+        comps = coupling_components(st)
+        # a meshed scheduler's block waves are slot-sharded megabatches: at
+        # most as many blocks as the mesh's sharded rung ladder holds
+        mesh = scheduler.mesh
+        max_blocks = (MEGA_MAX_SLOTS if mesh is None
+                      else max_mega_slots(mesh))
+        masks = (partition_blocks(st, comps, max_blocks)
+                 if len(comps) >= 2 and max_blocks >= 2 else [])
+        if len(masks) < 2:
+            _record(registry, "fallback_structure")
+            return None
+        budgets = block_budgets(st, masks)
     partition_ms = (time.perf_counter() - t_part0) * 1000.0
 
     # ---- entries ---------------------------------------------------------
     t_ent0 = time.perf_counter()
     solver = scheduler._tpu
-    dims = hier_dims(st, max(budgets))
-    entries, base = build_block_entries(
-        solver, st, masks, budgets, dims, trace=trace)
+    with trace.span("hier.entries"):
+        dims = hier_dims(st, max(budgets))
+        entries, base = build_block_entries(
+            solver, st, masks, budgets, dims, trace=trace)
     entries_ms = (time.perf_counter() - t_ent0) * 1000.0
 
     # ---- block waves ----------------------------------------------------
@@ -617,15 +628,22 @@ def _solve_hierarchical(
     mesh_kw = ({} if mesh is None
                else dict(min_slots=len(masks), mesh=mesh, registry=registry))
 
+    def bound(*args, **kwargs):
+        # the guard's call thread stamps its collections on the trace
+        with gc_spans(trace):
+            return solver.solve_many_prepared(*args, **kwargs)
+
     def wave(wave_entries):
         nonlocal dispatches
         tw = time.perf_counter()
-        if guard is not None and guard.enabled:
-            outs = guard.run_budgeted(solver.solve_many_prepared,
-                                      wave_entries, budget_frac=wave_frac,
-                                      **mesh_kw)
-        else:
-            outs = solver.solve_many_prepared(wave_entries, **mesh_kw)
+        with trace.span("hier.wave", blocks=len(wave_entries)):
+            if guard is not None and guard.enabled:
+                outs = guard.run_budgeted(bound, wave_entries,
+                                          budget_frac=wave_frac, trace=trace,
+                                          **mesh_kw)
+            else:
+                outs = solver.solve_many_prepared(wave_entries, trace=trace,
+                                                  **mesh_kw)
         dispatches += 1
         wave_ms.append((time.perf_counter() - tw) * 1000.0)
         for o in outs:
@@ -650,46 +668,50 @@ def _solve_hierarchical(
         # each dual update needs the PREVIOUS wave's usage; every wave is
         # still ONE batched dispatch over all contending blocks
         for t in range(price_budget):
-            usage = np.zeros((len(masks), P, st.R), dtype=np.float64)
-            for bi, out in enumerate(outs):
-                usage[bi] = _prov_usage(st, out.result.nodes, P)
-            v = _limit_violation(usage.sum(axis=0), limits)
-            hot = v > 1.0 + 1e-6
-            if not hot.any():
-                break
-            iters_run += 1
-            eta = float(mirror_eta(np.float32(t)))
-            lam = np.minimum(np.where(hot, lam + eta * (v - 1.0),
-                                      lam * 0.5), 8.0)
-            want_hot = np.zeros(st.G, dtype=bool)
-            if st.C:
-                # packed hot path: which provisioner each group would buy NOW,
-                # under the adjusted prices — one fused launch on resident
-                # feasibility / base prices / owners (the card builds the
-                # adjusted bf16 price row), exp(lam) up, one buffer back
-                if step is None:
-                    tsu = time.perf_counter()
-                    step = ScoreStep(*score_inputs(st, base), P, dev)
-                    score_setup_ms = (time.perf_counter() - tsu) * 1000.0
-                ts = time.perf_counter()
-                _cost, best = step(lam)
-                score_ms.append((time.perf_counter() - ts) * 1000.0)
-                prov_of_best = np.asarray(st.cand_prov)[best]
-                want_hot = hot[prov_of_best] & (_cost < 1e37)
-            contending = [
-                bi for bi in range(len(masks))
-                if usage[bi][hot].any() or want_hot[masks[bi]].any()
-            ]
-            if not contending:
-                break
-            # the re-solve takes the PADDED adjusted prices (3.0e38 rows stay)
-            adj_padded = price_adjusted(base[0]["cand_price"],
-                                        base[0]["cand_prov"], lam)
-            sub_entries, _ = build_block_entries(
-                solver, st, [masks[bi] for bi in contending],
-                [budgets[bi] for bi in contending], dims, base=base,
-                cand_price=adj_padded, trace=trace,
-            )
+            with trace.span("hier.price"):
+                usage = np.zeros((len(masks), P, st.R), dtype=np.float64)
+                for bi, out in enumerate(outs):
+                    usage[bi] = _prov_usage(st, out.result.nodes, P)
+                v = _limit_violation(usage.sum(axis=0), limits)
+                hot = v > 1.0 + 1e-6
+                if not hot.any():
+                    break
+                iters_run += 1
+                eta = float(mirror_eta(np.float32(t)))
+                lam = np.minimum(np.where(hot, lam + eta * (v - 1.0),
+                                          lam * 0.5), 8.0)
+                want_hot = np.zeros(st.G, dtype=bool)
+                if st.C:
+                    # packed hot path: which provisioner each group would
+                    # buy NOW, under the adjusted prices — one fused launch
+                    # on resident feasibility / base prices / owners (the
+                    # card builds the adjusted bf16 price row), exp(lam)
+                    # up, one buffer back
+                    if step is None:
+                        tsu = time.perf_counter()
+                        step = ScoreStep(*score_inputs(st, base), P, dev)
+                        score_setup_ms = (time.perf_counter() - tsu) * 1000.0
+                    ts = time.perf_counter()
+                    _cost, best = step(lam)
+                    score_ms.append((time.perf_counter() - ts) * 1000.0)
+                    prov_of_best = np.asarray(st.cand_prov)[best]
+                    want_hot = hot[prov_of_best] & (_cost < 1e37)
+                contending = [
+                    bi for bi in range(len(masks))
+                    if usage[bi][hot].any() or want_hot[masks[bi]].any()
+                ]
+                if not contending:
+                    break
+                # the re-solve takes the PADDED adjusted prices (3.0e38
+                # rows stay)
+                adj_padded = price_adjusted(base[0]["cand_price"],
+                                            base[0]["cand_prov"], lam)
+            with trace.span("hier.entries"):
+                sub_entries, _ = build_block_entries(
+                    solver, st, [masks[bi] for bi in contending],
+                    [budgets[bi] for bi in contending], dims, base=base,
+                    cand_price=adj_padded, trace=trace,
+                )
             sub_outs = wave(sub_entries)
             for bi, out in zip(contending, sub_outs):
                 outs[bi] = out
@@ -699,60 +721,62 @@ def _solve_hierarchical(
         _record(registry, "fallback_degraded")
         return None
 
-    # ---- merge ----------------------------------------------------------
+    # ---- merge + exact limit enforcement --------------------------------
     t_rep0 = time.perf_counter()
-    member_names: List[set] = []
-    for mask in masks:
-        names = set()
-        for gi in np.nonzero(mask)[0]:
-            names.update(p.name for p in st.groups[gi].pods)
-        member_names.append(names)
+    with trace.span("hier.merge"):
+        member_names: List[set] = []
+        for mask in masks:
+            names = set()
+            for gi in np.nonzero(mask)[0]:
+                names.update(p.name for p in st.groups[gi].pods)
+            member_names.append(names)
 
-    nodes: List[SimNode] = []
-    assignments: Dict[str, str] = {}
-    straggler_names: set = set()
-    block_of: Dict[str, int] = {}  # node name -> owning block
-    for bi, out in enumerate(outs):
-        res = out.result
-        members = member_names[bi]
-        nodes.extend(res.nodes)
-        for n in res.nodes:
-            block_of[n.name] = bi
-        for pn, nn in res.assignments.items():
-            if pn in members:
-                assignments[pn] = nn
-        # a block's extract marks every pod of every MASKED-OUT group
-        # infeasible (zero counts -> zero takes); only member infeasibility
-        # is real
-        straggler_names.update(pn for pn in res.infeasible if pn in members)
+        nodes: List[SimNode] = []
+        assignments: Dict[str, str] = {}
+        straggler_names: set = set()
+        block_of: Dict[str, int] = {}  # node name -> owning block
+        for bi, out in enumerate(outs):
+            res = out.result
+            members = member_names[bi]
+            nodes.extend(res.nodes)
+            for n in res.nodes:
+                block_of[n.name] = bi
+            for pn, nn in res.assignments.items():
+                if pn in members:
+                    assignments[pn] = nn
+            # a block's extract reports its member groups' pods only
+            straggler_names.update(pn for pn in res.infeasible
+                                   if pn in members)
 
-    # ---- exact limit enforcement + warm-start repair --------------------
-    usage_all = _prov_usage(st, nodes, P)
-    v = _limit_violation(usage_all, limits)
-    evicted: List[SimNode] = []
-    for pi in np.nonzero(v > 1.0 + 1e-6)[0]:
-        prov = st.prov_names[pi]
-        mine = sorted((n for n in nodes if n.provisioner == prov),
-                      key=lambda n: (-n.price, n.name))
-        for n in mine:
-            if _limit_violation(usage_all[pi:pi + 1],
-                                limits[pi:pi + 1])[0] <= 1.0 + 1e-6:
-                break
-            usage_all[pi] -= st.capacity_row(n.instance_type, n.allocatable)
-            evicted.append(n)
-    if evicted:
-        gone = {id(n) for n in evicted}
-        nodes = [n for n in nodes if id(n) not in gone]
-        for n in evicted:
-            straggler_names.update(p.name for p in n.pods)
-        assignments = {pn: nn for pn, nn in assignments.items()
-                       if pn not in straggler_names}
+        # exact limit enforcement: evict the dearest nodes of an over-limit
+        # provisioner until it fits; their pods join the stragglers
+        usage_all = _prov_usage(st, nodes, P)
+        v = _limit_violation(usage_all, limits)
+        evicted: List[SimNode] = []
+        for pi in np.nonzero(v > 1.0 + 1e-6)[0]:
+            prov = st.prov_names[pi]
+            mine = sorted((n for n in nodes if n.provisioner == prov),
+                          key=lambda n: (-n.price, n.name))
+            for n in mine:
+                if _limit_violation(usage_all[pi:pi + 1],
+                                    limits[pi:pi + 1])[0] <= 1.0 + 1e-6:
+                    break
+                usage_all[pi] -= st.capacity_row(n.instance_type,
+                                                 n.allocatable)
+                evicted.append(n)
+        if evicted:
+            gone = {id(n) for n in evicted}
+            nodes = [n for n in nodes if id(n) not in gone]
+            for n in evicted:
+                straggler_names.update(p.name for p in n.pods)
+            assignments = {pn: nn for pn, nn in assignments.items()
+                           if pn not in straggler_names}
 
-    pods_by_name = {p.name: p for p in pods}
-    stragglers = [pods_by_name[pn] for pn in sorted(straggler_names)
-                  if pn in pods_by_name]
-    n_repair = len(stragglers)
-    infeasible: Dict[str, str] = {}
+        pods_by_name = {p.name: p for p in pods}
+        stragglers = [pods_by_name[pn] for pn in sorted(straggler_names)
+                      if pn in pods_by_name]
+        n_repair = len(stragglers)
+        infeasible: Dict[str, str] = {}
 
     def _repair_solve(rp, existing, unav):
         return scheduler._solve_once(
@@ -760,20 +784,22 @@ def _solve_hierarchical(
             daemonsets, unav, True, None, trace=trace,
         )
 
-    if stragglers:
-        from .warmstart import delta_solve
+    # ---- warm-start repair of the stragglers ----------------------------
+    with trace.span("hier.repair", pods=n_repair):
+        if stragglers:
+            from .warmstart import delta_solve
 
-        merged = SolveResult(nodes=nodes, assignments=assignments,
-                             infeasible={}, existing_nodes=[])
-        outcome = delta_solve(
-            merged, added=stragglers,
-            solve_displaced=_repair_solve, solve_full=_repair_solve,
-            registry=registry, unavailable=unavailable,
-        )
-        repaired = outcome.result
-        nodes = list(repaired.existing_nodes) + list(repaired.nodes)
-        assignments = dict(repaired.assignments)
-        infeasible = dict(repaired.infeasible)
+            merged = SolveResult(nodes=nodes, assignments=assignments,
+                                 infeasible={}, existing_nodes=[])
+            outcome = delta_solve(
+                merged, added=stragglers,
+                solve_displaced=_repair_solve, solve_full=_repair_solve,
+                registry=registry, unavailable=unavailable,
+            )
+            repaired = outcome.result
+            nodes = list(repaired.existing_nodes) + list(repaired.nodes)
+            assignments = dict(repaired.assignments)
+            infeasible = dict(repaired.infeasible)
 
     # ---- cross-block tail consolidation ---------------------------------
     # evict each block's least-filled node (under _TAIL_FILL peak fill),
@@ -781,52 +807,53 @@ def _solve_hierarchical(
     # the cheaper of before/after; delta_solve mutates its inputs, so the
     # candidate runs against copies of the kept nodes
     n_tail = 0
-    if len(masks) > 1 and nodes:
-        tails: List[SimNode] = []
-        by_block: Dict[int, List[SimNode]] = {}
-        for n in nodes:
-            bi = block_of.get(n.name)
-            if bi is not None and n.pods:
-                by_block.setdefault(bi, []).append(n)
-        for mine in by_block.values():
-            cand = min(mine, key=_node_fill)
-            if _node_fill(cand) < _TAIL_FILL:
-                tails.append(cand)
-        # only tails that could actually co-reside merge: a tail whose zone
-        # no OTHER block's tail shares has nothing to merge with
-        zone_counts: Dict[str, int] = {}
-        for n in tails:
-            zone_counts[n.zone] = zone_counts.get(n.zone, 0) + 1
-        tails = [n for n in tails if zone_counts[n.zone] > 1]
-        tail_pods = [pods_by_name[p.name] for n in tails for p in n.pods
-                     if p.name in pods_by_name]
-        if len(tails) > 1 and tail_pods:
-            from dataclasses import replace
+    with trace.span("hier.tail"):
+        if len(masks) > 1 and nodes:
+            tails: List[SimNode] = []
+            by_block: Dict[int, List[SimNode]] = {}
+            for n in nodes:
+                bi = block_of.get(n.name)
+                if bi is not None and n.pods:
+                    by_block.setdefault(bi, []).append(n)
+            for mine in by_block.values():
+                cand = min(mine, key=_node_fill)
+                if _node_fill(cand) < _TAIL_FILL:
+                    tails.append(cand)
+            # only tails that could actually co-reside merge: a tail whose
+            # zone no OTHER block's tail shares has nothing to merge with
+            zone_counts: Dict[str, int] = {}
+            for n in tails:
+                zone_counts[n.zone] = zone_counts.get(n.zone, 0) + 1
+            tails = [n for n in tails if zone_counts[n.zone] > 1]
+            tail_pods = [pods_by_name[p.name] for n in tails for p in n.pods
+                         if p.name in pods_by_name]
+            if len(tails) > 1 and tail_pods:
+                from dataclasses import replace
 
-            from .warmstart import delta_solve
+                from .warmstart import delta_solve
 
-            gone = {n.name for n in tails}
-            kept = [replace(n, pods=list(n.pods),
-                            allocatable=dict(n.allocatable))
-                    for n in nodes if n.name not in gone]
-            alt = SolveResult(
-                nodes=kept,
-                assignments={pn: nn for pn, nn in assignments.items()
-                             if nn not in gone},
-                infeasible={}, existing_nodes=[])
-            outcome = delta_solve(
-                alt, added=tail_pods,
-                solve_displaced=_repair_solve, solve_full=_repair_solve,
-                registry=registry, unavailable=unavailable,
-            )
-            r2 = outcome.result
-            nodes2 = list(r2.existing_nodes) + list(r2.nodes)
-            if (not r2.infeasible
-                    and sum(n.price for n in nodes2)
-                    < sum(n.price for n in nodes) - 1e-9):
-                n_tail = len(tail_pods)
-                nodes = nodes2
-                assignments = dict(r2.assignments)
+                gone = {n.name for n in tails}
+                kept = [replace(n, pods=list(n.pods),
+                                allocatable=dict(n.allocatable))
+                        for n in nodes if n.name not in gone]
+                alt = SolveResult(
+                    nodes=kept,
+                    assignments={pn: nn for pn, nn in assignments.items()
+                                 if nn not in gone},
+                    infeasible={}, existing_nodes=[])
+                outcome = delta_solve(
+                    alt, added=tail_pods,
+                    solve_displaced=_repair_solve, solve_full=_repair_solve,
+                    registry=registry, unavailable=unavailable,
+                )
+                r2 = outcome.result
+                nodes2 = list(r2.existing_nodes) + list(r2.nodes)
+                if (not r2.infeasible
+                        and sum(n.price for n in nodes2)
+                        < sum(n.price for n in nodes) - 1e-9):
+                    n_tail = len(tail_pods)
+                    nodes = nodes2
+                    assignments = dict(r2.assignments)
     repair_ms = (time.perf_counter() - t_rep0) * 1000.0
 
     elapsed_ms = (time.perf_counter() - t0) * 1000.0

@@ -1270,14 +1270,18 @@ class BatchScheduler:
         resource-level room on another placed node (absorption might be
         possible), or some waste node is priced above the cheapest catalog
         type that fits its pods (downsizing might be possible)."""
+        reqs = []
         for n in waste:
             for p in n.pods:
                 req = dict(p.requests)
                 req.setdefault(L.RESOURCE_PODS, 1.0)
-                for o in others:
-                    rem = o.remaining()
-                    if all(rem.get(k, 0.0) >= v - 1e-9 for k, v in req.items()):
-                        return True
+                reqs.append(req)
+        # each placed node's remaining capacity once (it sums its pods)
+        for o in others:
+            rem = o.remaining()
+            for req in reqs:
+                if all(rem.get(k, 0.0) >= v - 1e-9 for k, v in req.items()):
+                    return True
         for n in waste:
             total: Dict[str, float] = {}
             for p in n.pods:

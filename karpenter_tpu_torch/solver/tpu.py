@@ -1445,13 +1445,26 @@ class TpuSolver:
                     not any(t.blocks(rep.tolerations) for t in node.taints)
                     and g.requirements.compatible(node.labels) is None
                 )
-        # selector counts on existing nodes + zone counters
-        for si, (sel, topo, kind) in enumerate(st.selector_defs):
+        # selector counts on existing nodes + zone counters: a node's pods
+        # are counted by their labels, and each distinct label set matched
+        # once per selector (a deployment's pods all carry one)
+        if st.selector_defs:
             for ni, node in enumerate(existing_nodes):
-                n_match = sum(1 for p in node.pods if sel.matches(p.labels))
-                ex_sel[ni, si] = n_match
-                zc0[si, zone_index.get(node.zone, 0)] += n_match
-                tot0[si] += n_match
+                by_labels: Dict[tuple, list] = {}
+                for p in node.pods:
+                    key = tuple(p.labels.items())
+                    seen = by_labels.get(key)
+                    if seen is None:
+                        by_labels[key] = [p.labels, 1]
+                    else:
+                        seen[1] += 1
+                zi = zone_index.get(node.zone, 0)
+                for si, (sel, _topo, _kind) in enumerate(st.selector_defs):
+                    n_match = sum(n for labels, n in by_labels.values()
+                                  if sel.matches(labels))
+                    ex_sel[ni, si] = n_match
+                    zc0[si, zi] += n_match
+                    tot0[si] += n_match
 
         np_consts = dict(
             counts=np_counts,
@@ -1661,13 +1674,6 @@ class TpuSolver:
         carry_np = [x.cpu().numpy() for x in carry]
         ys_np = ys.cpu().numpy() if ys is not None else None
         return carry_np, ys_np
-
-    def _run_entries(self, entries: Sequence[dict], zone_key: int,
-                     ct_key: int):
-        """One synchronous dispatch over prepared entries: enqueue, then
-        read back.  Returns host (carry rows, ys rows)."""
-        return self._read_back(*self._enqueue_entries(entries, zone_key,
-                                                      ct_key))
 
     # ---- dispatch preamble ----------------------------------------------
     def prepare(
@@ -1940,7 +1946,7 @@ class TpuSolver:
 
     def solve_many_prepared(self, entries: Sequence[dict], *,
                             min_slots: Optional[int] = None, mesh=None,
-                            registry=None) -> List[object]:
+                            registry=None, trace=None) -> List[object]:
         """Solve PRE-BUILT entries (each with ``r``, ``np_consts``, ``feas``,
         ``np_init``, ``dims``, ``NE``; all at one dims bucket, full NR) as
         ONE batched dispatch; one output per entry, in order.  The
@@ -1949,7 +1955,13 @@ class TpuSolver:
         every output is a :class:`TpuSolveOutput`.  ``mesh`` runs it as the
         sharded megabatch of :meth:`solve_many_async` (padded to the rung
         of ``min_slots``), whose outputs may also be a slot's exception
-        (:class:`SlotNotOwned` for another rank's slot)."""
+        (:class:`SlotNotOwned` for another rank's slot).
+
+        Unmeshed, ``trace`` names the dispatch as :meth:`solve` does:
+        ``device_execute`` holding ``device_enqueue`` (with the group
+        step's ``step.*`` parts) and ``device_readback``, then one
+        ``extract`` per entry.  A meshed dispatch records each entry's
+        ``megabatch`` and ``extract`` spans on the entry's own trace."""
         if not entries:
             raise MegaBucketMismatch("empty megabatch")
         if len(entries) > MEGA_MAX_SLOTS:
@@ -1966,15 +1978,23 @@ class TpuSolver:
                 track=entries[0]["r"]["track_assignments"],
                 zone_key=zone_key, ct_key=ct_key, t0=t0, mesh=mesh,
                 registry=registry).results()
-        carry_np, ys_np = self._run_entries(entries, zone_key, ct_key)
+        trace = trace or NULL_TRACE
+        with trace.span("device_execute", slots=len(entries)):
+            with trace.span("device_enqueue"):
+                carry, ys = self._enqueue_entries(entries, zone_key, ct_key,
+                                                  trace=trace)
+            with trace.span("device_readback"):
+                carry_np, ys_np = self._read_back(carry, ys)
         elapsed_ms = (time.perf_counter() - t0) * 1000.0
         outs = []
         for i, e in enumerate(entries):
             r = e["r"]
-            outs.append(self._extract(
-                r["st"], tuple(x[i] for x in carry_np),
-                ys_np[i] if ys_np is not None else None,
-                r["existing_nodes"], e["NE"], elapsed_ms))
+            with trace.span("extract", slot=i):
+                outs.append(self._extract(
+                    r["st"], tuple(x[i] for x in carry_np),
+                    ys_np[i] if ys_np is not None else None,
+                    r["existing_nodes"], e["NE"], elapsed_ms,
+                    groups=r.get("groups")))
         return outs
 
     def _dispatch_prepared(
@@ -2169,8 +2189,12 @@ class TpuSolver:
 
     # ---- result extraction ---------------------------------------------
     def _extract(
-        self, st, carry_np, ys_np, existing_nodes, NE, solve_ms
+        self, st, carry_np, ys_np, existing_nodes, NE, solve_ms, groups=None
     ) -> TpuSolveOutput:
+        """The plan of one solve's carry.  ``groups``, where given, are the
+        only groups the solve was asked to place (a hierarchical block's
+        members): the other groups' pods are left out of the result
+        instead of being reported infeasible."""
         (res, row_zone, row_dom, row_cand, row_price, selcnt, active,
          n_used, zc, tot, prov_used, infeasible) = [
             np.asarray(x) for x in carry_np]
@@ -2208,10 +2232,13 @@ class TpuSolver:
         assignments: Dict[str, str] = {}
         infeasible_map: Dict[str, str] = {}
         node_groups: Optional[Dict[int, set]] = None
+        solved = (range(len(st.groups)) if groups is None
+                  else [int(gi) for gi in groups])
         if ys_np is not None:
             takes = np.asarray(ys_np)  # [G, NR]
             node_groups = {}
-            for gi, g in enumerate(st.groups):
+            for gi in solved:
+                g = st.groups[gi]
                 placed_slots = np.nonzero(takes[gi])[0]
                 pod_iter = iter(g.pods)
                 for si in placed_slots:
@@ -2230,7 +2257,8 @@ class TpuSolver:
                     infeasible_map[pod.name] = "solver: no feasible placement"
         else:
             takes = None
-            for gi, g in enumerate(st.groups):
+            for gi in solved:
+                g = st.groups[gi]
                 k = int(infeasible[gi])
                 for pod in g.pods[len(g.pods) - k:]:
                     infeasible_map[pod.name] = "solver: no feasible placement"
@@ -2469,7 +2497,7 @@ class PendingMegaSolve:
             with trace.span("extract", slot=i):
                 outputs.append(s._extract(
                     r["st"], carry_i, ys_i, r["existing_nodes"], e["NE"],
-                    elapsed_ms,
+                    elapsed_ms, groups=r.get("groups"),
                 ))
         if owners is not None and self.registry is not None:
             from ..metrics import MULTIHOST_SLOTS

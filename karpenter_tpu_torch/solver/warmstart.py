@@ -205,6 +205,9 @@ def build_meta(prev: SolveResult, unavailable=None) -> _Meta:
                                          {}).items()
                 if n in prev.infeasible}
     total = 0
+    # the last constrained pod seen of each owner: a pod whose spec equals
+    # it has its group key and its terms, already added
+    last_of: Dict[tuple, PodSpec] = {}
     for i, n in enumerate(nodes):
         rem = n.remaining()
         for k, j in res_pos.items():
@@ -214,6 +217,11 @@ def build_meta(prev: SolveResult, unavailable=None) -> _Meta:
             if p.name not in prev.assignments:
                 preseated[p.name] = n.name
             if p.topology_spread or p.affinity_terms:
+                owner = (p.namespace, p.owner_key)
+                rep = last_of.get(owner)
+                if rep is not None and p.same_group_spec(rep):
+                    continue
+                last_of[owner] = p
                 gk = p.group_key()
                 for sel in _constraint_sels(p):
                     sel_terms.add((sel, gk))

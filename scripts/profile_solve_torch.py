@@ -41,15 +41,16 @@ over the traced wall).
 **The stage table** (``stages``): one row per stage of the whole solve —
 the spans the scheduler opens (``tensorize``, ``dispatch``,
 ``device_prepare``, ``device_execute``, ``extract``, ``fence``,
-``reseat``, ``relax``, ``gang``) and, in a hierarchical solve, the stages
-this script opens around the hierarchical driver's parts (``partition``,
-``entries``, ``waves``, ``price loop`` for the score step, ``repair``,
-``tail repack``). The solve is given a trace whose spans record their host
-interval (and, on the host, where the profiler records operations, also
-open a ``torch.profiler.record_function`` range ``kt::<stage>``). Each
-instant of the solve's wall belongs to the innermost open stage; a stage
-nested in ``reseat``, ``repair``, ``tail repack``, ``relax`` or ``gang``
-is named under it (``repair > device_execute``). A row gives the stage's
+``reseat``, ``relax``, ``gang``) and, in a hierarchical solve, the spans
+the hierarchical solve opens (``hier.partition``, ``hier.entries``,
+``hier.wave``, ``hier.price``, ``hier.merge``, ``hier.repair``,
+``hier.tail``; ``solver/hierarchy.py``). The solve is given a trace whose
+spans record their host interval (and, on the host, where the profiler
+records operations, also open a ``torch.profiler.record_function`` range
+``kt::<stage>``). Each instant of the solve's wall belongs to the
+innermost open stage; a stage nested in ``reseat``, ``hier.wave``,
+``hier.repair``, ``hier.tail``, ``relax`` or ``gang`` is named under it
+(``hier.repair > device_execute``). A row gives the stage's
 host wall ms in the last unprofiled repeat (``wall_ms``) and in the
 profiled solve (``profiled_wall_ms``), the CUDA kernels launched inside it
 (each kernel belongs to the stage whose wall holds its launch), their
@@ -105,7 +106,8 @@ sys.path.insert(0, ROOT)
 os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 #: stages whose nested stages are named under them
-NESTING = ("reseat", "repair", "tail repack", "relax", "gang")
+NESTING = ("reseat", "hier.wave", "hier.repair", "hier.tail", "relax",
+           "gang")
 #: the hierarchical rungs of --hier, one 25-pod proxy per 2,500 pods
 HIER_RUNGS = (100_000, 500_000, 1_000_000)
 #: where every mode also writes its JSON document
@@ -191,73 +193,6 @@ class StageTrace:
     def add(self, name: str, t0: float, t1: float) -> None:
         with self._lock:
             self.spans.append((next(self._seq), name, t0, t1))
-
-
-@contextlib.contextmanager
-def hier_stages(sched, trace: StageTrace):
-    """Open ``trace`` spans around the hierarchical driver's parts while a
-    solve runs: ``partition`` (components, block packing, budgets),
-    ``entries`` (every block-entry build), ``waves`` (every block wave),
-    ``price loop`` (the score step's set-up and calls), ``repair`` and
-    ``tail repack`` (the two warm-start re-seats; the tail's begins with
-    its fill scan).  The package is patched for the duration and restored
-    after."""
-    from karpenter_tpu_torch.solver import hierarchy as hier
-    from karpenter_tpu_torch.solver import warmstart
-
-    def staged(name, fn):
-        def wrapper(*args, **kwargs):
-            with trace.span(name):
-                return fn(*args, **kwargs)
-        return wrapper
-
-    in_tail = [False]
-    fill = hier._node_fill
-
-    def node_fill(n):
-        in_tail[0] = True
-        return fill(n)
-
-    delta_solve = warmstart.delta_solve
-
-    def delta(*args, **kwargs):
-        with trace.span("tail repack" if in_tail[0] else "repair"):
-            return delta_solve(*args, **kwargs)
-
-    base_step = hier.ScoreStep
-
-    class StagedScoreStep(base_step):
-        def __init__(self, *args, **kwargs):
-            with trace.span("price loop"):
-                super().__init__(*args, **kwargs)
-
-        def __call__(self, lam):
-            with trace.span("price loop"):
-                return super().__call__(lam)
-
-    patches = [(hier, "coupling_components",
-                staged("partition", hier.coupling_components)),
-               (hier, "partition_blocks",
-                staged("partition", hier.partition_blocks)),
-               (hier, "block_budgets", staged("partition", hier.block_budgets)),
-               (hier, "build_block_entries",
-                staged("entries", hier.build_block_entries)),
-               (hier, "_node_fill", node_fill),
-               (hier, "ScoreStep", StagedScoreStep),
-               (warmstart, "delta_solve", delta),
-               (sched._tpu, "solve_many_prepared",
-                staged("waves", sched._tpu.solve_many_prepared))]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-    try:
-        for obj, name, fn in patches:
-            setattr(obj, name, fn)
-        yield
-    finally:
-        for obj, name, fn in saved:
-            if obj is sched._tpu:
-                del sched._tpu.solve_many_prepared  # the bound method again
-            else:
-                setattr(obj, name, fn)
 
 
 def segments(spans, t0: float, t1: float) -> list:
@@ -456,8 +391,7 @@ def stage_table(trace: StageTrace, t0: float, t1: float, events=None,
 # ---------------------------------------------------------------------------
 
 
-def profiled_solve(sched, solve, hier_solve: bool = False,
-                   trace_path=None) -> dict:
+def profiled_solve(sched, solve, trace_path=None) -> dict:
     """``solve(trace)`` once under ``torch.profiler`` with a
     :class:`StageTrace`.  On the card the profiler records the CUDA
     activity (kernels, copies and the runtime's calls); on the host it
@@ -475,19 +409,16 @@ def profiled_solve(sched, solve, hier_solve: bool = False,
     cuda = sched.device.type == "cuda"
     acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
     trace = StageTrace(ranges=not cuda)
-    hooks = (hier_stages(sched, trace) if hier_solve
-             else contextlib.nullcontext())
     _sync(sched.device)
-    with hooks:
-        with profile(activities=acts) as prof:
-            with record_function("kt::solve"):
-                t_sync = time.perf_counter()
-                _sync(sched.device)
-                t0 = time.perf_counter()
-                res = solve(trace)
-                _sync(sched.device)
-                t1 = time.perf_counter()
-        t_stop = time.perf_counter()
+    with profile(activities=acts) as prof:
+        with record_function("kt::solve"):
+            t_sync = time.perf_counter()
+            _sync(sched.device)
+            t0 = time.perf_counter()
+            res = solve(trace)
+            _sync(sched.device)
+            t1 = time.perf_counter()
+    t_stop = time.perf_counter()
     events = device_events(prof)
     t_parse = time.perf_counter()
     if "solve" in events["ranges"]:
@@ -738,16 +669,15 @@ def measure_hier_solve(device, nd: int = 8, per: int = 1250, sink=None,
         trace = StageTrace()
         sink["hier_names_at"] = types._node_next
         before = kernels.counts()
-        with hier_stages(sched, trace):
-            t0 = time.perf_counter()
-            res = solve(trace)
-            _sync(sched.device)
-            t1 = time.perf_counter()
+        t0 = time.perf_counter()
+        res = solve(trace)
+        _sync(sched.device)
+        t1 = time.perf_counter()
         walls = stage_walls(trace.spans, t0, t1)
         if profiled:
             sink["hier_names_at"] = types._node_next
             before = kernels.counts()
-            prof = profiled_solve(sched, solve, hier_solve=True)
+            prof = profiled_solve(sched, solve)
             res = prof["result"]
         launches = {k: n - before[k] for k, n in kernels.counts().items()}
     stats = dict(sched.hier_stats)

@@ -34,7 +34,10 @@ then load from it, and a card warm in a fresh process loads the library
 from it without running nvcc.  The whole-solve profile attributes every
 kernel of a profiled config-2 solve to a stage, and the hierarchical
 demo's contended solve launches the fused entry once per price iteration
-and plans as the host does.
+and plans as the host does.  The benchmark's hierarchical cell
+(``zonespread-100k``) plans node for node the same traced and untraced on
+the card, at the CPU tests' 2,000 pods and at its full 100,000, and its
+plans keep every guarantee of ``benchmark/reference.py``.
 """
 
 import numpy as np
@@ -710,3 +713,66 @@ def test_config2_solve_plans_the_same_with_the_fill_kernels(cuda,
     assert cs.plan(res_k) == cs.plan(res_p)
     assert res_k.assignments == res_p.assignments
     assert res_k.infeasible == res_p.infeasible
+
+
+def _hier_burst_plans(monkeypatch, deployments: int, replicas: int):
+    """The benchmark's ``zonespread-100k`` configuration cut to
+    ``deployments`` x ``replicas`` (the full batch at 40 x 2,500), its first
+    pending set of one seed solved twice on the card under ``auto``, once
+    traced: the two plain plans, the set and the reference's candidates."""
+    import copy
+
+    from benchmark import catalog, harness, inputs, reference, workload
+    from benchmark.tracing import ReqTrace
+    from karpenter_tpu_torch.metrics import HIER_SOLVES, Registry
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    c = copy.deepcopy(harness.cell(harness.manifest(),
+                                   "zonespread-100k.burst"))
+    p = c["config"]["pending"]
+    p["deployments"], p["replicas"] = deployments, replicas
+    p["cpu"], p["memory_gib"] = (p["cpu"][:deployments],
+                                 p["memory_gib"][:deployments])
+    if deployments * replicas < 100_000:
+        monkeypatch.setenv("KT_HIER_THRESHOLD", str(deployments * replicas))
+    pending = workload.pending_sets(c["config"], c["traffic"],
+                                    2 ** 33 + 29)[0]
+    records = catalog.generate(full=True)
+    tmpl = inputs.templates(pending)
+    index = inputs.index_of(tmpl)
+    reg = Registry()
+    sched = BatchScheduler(backend="auto", registry=reg, device="cuda")
+    plans = []
+    try:
+        for k, trace in enumerate((None, ReqTrace())):
+            res = sched.solve(inputs.fresh(tmpl, str(k)),
+                              [inputs.provisioner(c["config"]["provisioner"])],
+                              inputs.instance_types(records), trace=trace)
+            plans.append(inputs.plain_plan(res, index, str(k)))
+    finally:
+        sched.stop_warms()
+    assert reg.counter(HIER_SOLVES).get({"path": "hierarchical"}) == 2
+    cands = reference.Candidates(records, c["config"]["provisioner"],
+                                 catalog.ZONES)
+    return plans, pending, cands
+
+
+@pytest.mark.parametrize("deployments,replicas", [(8, 250), (40, 2500)])
+def test_hier_burst_plans_the_same_traced_on_the_card(cuda, monkeypatch,
+                                                      deployments, replicas):
+    """The benchmark's hierarchical cell on the card, at the CPU tests'
+    size and at its full 100,000 pods: traced and untraced, the plan is
+    node for node the same and breaks none of the guarantees."""
+    from benchmark import reference
+
+    plans, pending, cands = _hier_burst_plans(monkeypatch, deployments,
+                                              replicas)
+
+    def nodes(plan):
+        return sorted((t, z, ct, pr, tuple(sorted(pods)))
+                      for t, z, ct, pr, pods in plan["nodes"])
+
+    assert nodes(plans[1]) == nodes(plans[0])
+    for plan in plans:
+        assert reference.check(pending, plan, cands) == dict.fromkeys(
+            reference.FAULT_KINDS, 0)

@@ -420,7 +420,7 @@ def test_hierarchical_wave_hang_degrades_the_batch(monkeypatch):
         budgets.append(timeout_s)
         return real(timeout_s, fn, args, kwargs)
 
-    def hung(entries):
+    def hung(entries, **kwargs):  # the wave passes its trace
         raise DeviceHang("block wave hung")
 
     monkeypatch.setattr(sched._guard, "_run", spy)

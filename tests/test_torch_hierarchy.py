@@ -269,3 +269,29 @@ def test_threshold_knob_parses_and_defends(monkeypatch):
     assert hier.hier_threshold() == hier.DEFAULT_HIER_THRESHOLD
     monkeypatch.setenv("KT_HIER_PRICE_ITERS", "-3")
     assert hier.hier_price_iters() == 0
+
+
+def test_block_extract_reports_its_member_pods_only(env):
+    """A block wave's extract reports its member groups' pods alone: the
+    plan of the extract that reads every group, without the other
+    blocks' pods that one marks infeasible."""
+    st = t_tensorize(env["pods"], [provisioner(t_prov)], env["cat"])
+    masks = hier.partition_blocks(st, hier.coupling_components(st), 2)
+    budgets = hier.block_budgets(st, masks)
+    solver = env["sched"]._tpu
+    entries, _ = hier.build_block_entries(
+        solver, st, masks, budgets, hier.hier_dims(st, max(budgets)))
+    outs = solver.solve_many_prepared(entries)
+    for e in entries:
+        e["r"].pop("groups")
+    every = solver.solve_many_prepared(entries)
+    for mask, out, all_groups in zip(masks, outs, every):
+        mine, full = out.result, all_groups.result
+        members = {p.name for gi in np.nonzero(mask)[0]
+                   for p in st.groups[gi].pods}
+        assert set(mine.assignments) | set(mine.infeasible) == members
+        assert plan(mine) == plan(full)
+        assert set(mine.assignments) == set(full.assignments)
+        assert mine.infeasible == {n: why for n, why in full.infeasible.items()
+                                   if n in members}
+        assert set(full.infeasible) - members

@@ -179,14 +179,14 @@ def test_stage_rows_sum_to_the_wall(measured):
 
 def test_segments_name_the_innermost_stage():
     spans = [(0, "dispatch", 1.0, 9.0), (1, "tensorize", 1.0, 2.0),
-             (2, "device_execute", 3.0, 5.0), (3, "repair", 6.0, 8.5),
+             (2, "device_execute", 3.0, 5.0), (3, "hier.repair", 6.0, 8.5),
              (4, "device_execute", 7.0, 8.0)]
     segs = ps.segments(spans, 0.0, 10.0)
     assert [(a, b, k) for a, b, k in segs] == [
         (0.0, 1.0, "other"), (1.0, 2.0, "tensorize"),
         (2.0, 3.0, "dispatch"), (3.0, 5.0, "device_execute"),
-        (5.0, 6.0, "dispatch"), (6.0, 7.0, "repair"),
-        (7.0, 8.0, "repair > device_execute"), (8.0, 8.5, "repair"),
+        (5.0, 6.0, "dispatch"), (6.0, 7.0, "hier.repair"),
+        (7.0, 8.0, "hier.repair > device_execute"), (8.0, 8.5, "hier.repair"),
         (8.5, 9.0, "dispatch"), (9.0, 10.0, "other")]
     walls = ps.stage_walls(spans, 0.0, 10.0)
     assert sum(walls.values()) == pytest.approx(10000.0)
@@ -207,9 +207,14 @@ def test_hierarchical_stage_table_names_the_driver_stages():
     sink = {}
     table = ps.measure_hier_solve("cpu", nd=8, per=250, sink=sink)
     rows = {r["stage"] for r in table["stages"]}
-    for stage in ("tensorize", "partition", "entries", "waves",
-                  "price loop", "repair"):
-        assert stage in rows, (stage, rows)
+    # the hierarchical spans: a stage nested in a wave, a repair or the
+    # tail repack is named under it
+    for stage in ("tensorize", "hier.partition", "hier.entries",
+                  "hier.wave", "hier.price", "hier.merge", "hier.repair",
+                  "hier.tail"):
+        assert any(r == stage or r.startswith(stage + " > ")
+                   for r in rows), (stage, rows)
+    assert "hier.wave > step.fill" in rows
     assert table["covered"] >= 0.9 and table["profiled_covered"] >= 0.9
     assert table["price_iters"] == sink["hier_stats"]["price_iters"] >= 1
     assert table["blocks"] == 8

@@ -812,3 +812,102 @@ def test_unplaced_pods_survive_two_full_fallbacks(catalogs):
     assert len(tracked) == 23
     assert len(set(ref[1].result.assignments)
                | set(ref[1].result.infeasible)) == 13
+
+
+def _web_spread(sel_labels, name, owner, cpu=0.5):
+    sel = t_pod.LabelSelector.of(sel_labels)
+    return t_pod.PodSpec(
+        name=name, labels={"app": owner}, owner_key=owner,
+        requests={"cpu": cpu, "memory": 1.0 * GIB},
+        topology_spread=[t_pod.TopologySpreadConstraint(
+            1, t_labels.ZONE, "DoNotSchedule", sel)])
+
+
+def test_existing_node_selector_counts_are_per_pod_counts(catalogs):
+    """The existing-node selector counts (``selcnt``, the zone counters
+    and the totals) count every matching pod, whether its label dict is
+    shared, an equal copy, the same labels in another order, or another
+    set; ``_host_arrays`` matches each distinct label set once."""
+    catalog = catalogs["port"]
+    prov = t_prov.Provisioner(name="default").with_defaults()
+    pending = ([_web_spread({"app": "web"}, f"w-{i}", "web")
+                for i in range(4)]
+               + [_web_spread({"tier": "a"}, f"t-{i}", "tier")
+                  for i in range(4)])
+    st, _ = t_tensorize.TensorizeCache().tensorize(pending, [prov], catalog)
+    assert len(st.selector_defs) == 2
+    shared = {"app": "web", "tier": "a"}
+    groups = [
+        [shared] * 3 + [dict(shared)] * 2
+        + [{"tier": "a", "app": "web"}, {"app": "db"}],
+        [{"app": "web", "tier": "b"}, {}, shared],
+        [],
+    ]
+    it = catalog[0]
+    nodes = []
+    for ni, labels in enumerate(groups):
+        nodes.append(t_types.SimNode(
+            instance_type=it.name, provisioner="default",
+            zone=st.zone_names[ni % len(st.zone_names)],
+            capacity_type="on-demand", price=1.0,
+            allocatable={"cpu": 64.0, "memory": 256.0 * GIB, "pods": 110.0},
+            pods=[t_pod.PodSpec(name=f"e{ni}-{j}", labels=lab,
+                                requests={"cpu": 0.1})
+                  for j, lab in enumerate(labels)],
+            existing=True))
+    solver = t_tpu.TpuSolver(device="cpu")
+    _c, _f, init, _d = solver._host_arrays(
+        st, nodes, node_budget=8, track_assignments=False, full_nr=False)
+    selcnt, zc, tot = init[5], init[8], init[9]
+    zone_index = {z: i for i, z in enumerate(st.zone_names)}
+    want_zc = np.zeros_like(zc)
+    for si, (sel, _topo, _kind) in enumerate(st.selector_defs):
+        for ni, n in enumerate(nodes):
+            want = sum(1 for p in n.pods if sel.matches(p.labels))
+            assert selcnt[ni, si] == want
+            want_zc[si, zone_index[n.zone]] += want
+    assert (zc == want_zc).all()
+    assert (tot == want_zc.sum(axis=1)).all()
+    assert selcnt[:3].sum() == 6 + 2 + 6 + 1
+
+
+def test_build_meta_builds_each_owners_group_key_once(monkeypatch):
+    """``build_meta`` indexes every seated spread pod's (selector, group
+    key) pair, building a key only where a pod's spec differs from the
+    last of its owner: 4 keys for 8 pods here, the same pairs as every
+    pod's own key gives."""
+    spread_w = _web_spread({"app": "w"}, "w-0", "w")
+    spread_v = _web_spread({"app": "v"}, "v-0", "v")
+
+    def like(p, name, **kw):
+        d = dict(p.__dict__, name=name, labels=dict(p.labels),
+                 requests=dict(kw.pop("requests", p.requests)), **kw)
+        d.pop("_group_key", None)
+        q = object.__new__(t_pod.PodSpec)
+        q.__dict__ = d
+        return q
+
+    order = [like(spread_w, "w-1"), like(spread_w, "w-2"),
+             like(spread_v, "v-1"), like(spread_w, "w-3"),
+             like(spread_v, "v-2"),
+             like(spread_w, "w-4", requests={"cpu": 1.5, "memory": GIB}),
+             like(spread_w, "w-5"), like(spread_v, "v-3")]
+    want = {(t.label_selector, p._compute_group_key())
+            for p in order for t in p.topology_spread}
+    assert len(want) == 3
+    built = []
+    compute = t_pod.PodSpec._compute_group_key
+    monkeypatch.setattr(t_pod.PodSpec, "_compute_group_key",
+                        lambda self: built.append(self.name) or compute(self))
+    nodes = [t_types.SimNode(instance_type="m", provisioner="default",
+                             zone="z", capacity_type="on-demand", price=1.0,
+                             allocatable={"cpu": 64.0}, pods=order[i:i + 3])
+             for i in range(0, len(order), 3)]
+    prev = t_types.SolveResult(
+        nodes=nodes, assignments={p.name: n.name for n in nodes
+                                  for p in n.pods},
+        infeasible={}, existing_nodes=[])
+    meta = t_warmstart.build_meta(prev)
+    assert meta.sel_terms == want
+    assert built == ["w-1", "v-1", "w-4", "w-5"]
+    assert meta.total_pods == 8 and not meta.preseated
