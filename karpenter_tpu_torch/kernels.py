@@ -20,11 +20,14 @@ directory at once each compile to their own ``*.{pid}.tmp`` and rename it
 into place, so each loads a whole library.
 
 Every kernel entry carries a plain ``launches`` counter that its wrapper
-adds one to where it launches the kernel, and nowhere else.
+adds one to where it launches the kernel (:meth:`Kernel.count_launch`),
+and that a CUDA graph replay adds its captured launches to
+(:func:`tally` counts what a capture recorded).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -42,6 +45,8 @@ _BUILD = _PKG / "_build"
 #: one build at a time in this process: two threads share one pid, so they
 #: would share one temporary file
 _BUILD_LOCK = threading.Lock()
+#: per thread, the launch counts :func:`tally` is collecting (absent: none)
+_TALLY = threading.local()
 
 
 def _given(path: Optional[str]) -> bool:
@@ -132,6 +137,14 @@ class Kernel:
     @property
     def repo_path(self) -> str:
         return self.library.repo_path
+
+    def count_launch(self, n: int = 1) -> None:
+        """Add ``n`` launches: to ``launches``, and to this thread's
+        :func:`tally` where one is open."""
+        self.launches += n
+        counts = getattr(_TALLY, "counts", None)
+        if counts is not None:
+            counts[self] = counts.get(self, 0) + n
 
     def launcher(self):
         """The loaded C launcher, building the library first if needed."""
@@ -224,6 +237,23 @@ def libraries(kernels: Sequence[Kernel] = ()) -> List[Library]:
     """The distinct libraries behind ``kernels`` (default: all), in order."""
     return list({id(k.library): k.library
                  for k in (kernels or ALL)}.values())
+
+
+@contextlib.contextmanager
+def tally():
+    """Count the launches this thread makes inside the block, by
+    :class:`Kernel`: the dict it yields fills as they are made (a CUDA
+    graph capture records them, and each replay adds them again)."""
+    outer = getattr(_TALLY, "counts", None)
+    counts: Dict[Kernel, int] = {}
+    _TALLY.counts = counts
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = outer
+        if outer is not None:
+            for k, n in counts.items():
+                outer[k] = outer.get(k, 0) + n
 
 
 def reset_counts() -> None:

@@ -172,6 +172,9 @@ HIER_BLOCKS = "karpenter_solver_hier_blocks"
 HIER_PRICE_ITERATIONS = "karpenter_solver_hier_price_iterations"
 HIER_REPAIR_PODS = "karpenter_solver_hier_repair_pods"
 HIER_DURATION = "karpenter_solver_hier_duration_seconds"
+#: the port's own: a group loop on the card served by its signature's CUDA
+#: graph (1) or run eagerly or captured (0) (solver/scan_graphs.py)
+SCAN_GRAPH_REPLAYS = "karpenter_solver_scan_graph_replays"
 
 # serving entry points: warms, megabatch flushes (reference metrics.py:154-170)
 SOLVER_COMPILE_IN_PROGRESS = "karpenter_solver_compile_in_progress"
@@ -472,6 +475,12 @@ INVENTORY = {
         "Straggler pods re-seated by the host-side repair pass after the "
         "price budget expired (limit-evicted nodes' pods + "
         "block-infeasible pods)."),
+    SCAN_GRAPH_REPLAYS: (
+        "histogram", (),
+        "Group loops on the card, each observed as 1 when served by a "
+        "replay of its signature's captured CUDA graph and 0 when run "
+        "eagerly or captured: the sum over the count is the share served "
+        "by replay."),
     # reworded from the reference's: the port has no compile-behind
     # outcome, and its fence reads the slot blocks of its own rank
     SOLVER_BACKEND_DURATION: (

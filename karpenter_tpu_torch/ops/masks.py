@@ -222,7 +222,7 @@ def _fill_on_card(kernel, zoned, per_row, eligible: torch.Tensor
     if rc != 0:  # also Z past the kernel's kMaxZones
         raise RuntimeError(
             f"{kernel.name} launch failed: CUDA error {rc} (Z={Z})")
-    kernel.launches += 1
+    kernel.count_launch()
     return out
 
 

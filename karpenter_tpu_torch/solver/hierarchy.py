@@ -336,7 +336,7 @@ def packed_scan_scores(
             idx.data_ptr(), G, C, stream)
     if rc != 0:
         raise RuntimeError(f"packed_score launch failed: CUDA error {rc}")
-    PACKED_SCORE.launches += 1
+    PACKED_SCORE.count_launch()
     return cost, idx
 
 
@@ -415,7 +415,7 @@ def price_step_scores(
     if rc != 0:  # also a C past the shared-memory price row's cap
         raise RuntimeError(
             f"price_step_score launch failed: CUDA error {rc}")
-    PRICE_STEP_SCORE.launches += 1
+    PRICE_STEP_SCORE.count_launch()
     return out
 
 

@@ -486,7 +486,7 @@ class BatchScheduler:
         self.compile_behind = (
             _compile_behind_enabled() if compile_behind is None
             else compile_behind)
-        self._tpu = TpuSolver(device=self.device)
+        self._tpu = TpuSolver(device=self.device, registry=self.registry)
         # incremental host tensorize: group-level tensors built once per
         # batch shape, reused across solves (KT_TENSORIZE_CACHE=0 forces
         # the from-scratch path, and turns the relax rung off)

@@ -35,6 +35,13 @@ nothing, so the warm API keeps the reference's meaning without the stall:
 a signature is ``ready`` once this process has run it, a warm runs it on a
 background thread, and a cold signature is served on the device.
 
+On the card the group loop of a recurring signature is replayed from a
+CUDA graph (``scan_graphs.py``): the loop runs eagerly the first time its
+signature is seen, is captured once its eager runs have cost what a
+capture costs, and is replayed after, one graph launch in place of tens
+of thousands of operations issued from Python.  Host tensors always run
+the loop eagerly.
+
 The fault plane (``faults``, ``KT_FAULTS``) fires at the reference's two
 choke points: ``dispatch`` before every enqueue (``_enqueue_entries``) and
 ``fence`` before every device-to-host read (``_read_back``; a
@@ -84,6 +91,7 @@ from ..ops.masks import (
     water_fill,
 )
 from ..utils.clock import Clock
+from .scan_graphs import ScanGraphs, scan_key
 from .types import SimNode, SolveResult
 
 BIGN = float(np.float32(1e9))  # "unbounded" node/pod counts
@@ -1121,10 +1129,15 @@ class TpuSolver:
     #: bounded) and start as slots free up
     MAX_CONCURRENT_WARMS = 2
     MAX_QUEUED_WARMS = 8
+    #: group-loop signatures kept as captured CUDA graphs, and as many kept
+    #: as seen but not captured (``ScanGraphs``); least recently used go
+    #: first
+    MAX_SCAN_GRAPHS = 16
     #: a signature whose background warm failed is not retried for this long
     WARM_FAILURE_BACKOFF = 300.0
 
-    def __init__(self, device=None, clock: Optional[Clock] = None) -> None:
+    def __init__(self, device=None, clock: Optional[Clock] = None,
+                 registry=None) -> None:
         self.device = resolve_device(device)
         # injectable clock for the warm-failure backoff
         self._clock = clock or Clock()
@@ -1143,6 +1156,10 @@ class TpuSolver:
         self._nr_exhausted: set = set()              # guarded-by: _lock
         # per-(device, block) streams of sharded megabatch dispatches
         self._streams: Dict[tuple, object] = {}      # guarded-by: _lock
+        # the group loop's CUDA graphs, one per signature; ``registry``
+        # receives their replay histogram
+        self._scan_graphs = ScanGraphs(self.MAX_SCAN_GRAPHS,
+                                       torch.cuda.CUDAGraph, registry)
 
     # ---- signatures and readiness ----------------------------------------
     def signature(
@@ -1592,10 +1609,10 @@ class TpuSolver:
                          ct_key: int, device=None, trace=NULL_TRACE):
         """The enqueue half of one dispatch over prepared entries (all at
         one dims bucket) on ``device`` (the solver's by default): uploads,
-        feasibility per distinct input set, then the batched group loop,
-        whose step parts ``trace`` names (``_run_scan``).  Returns the
-        device ``(carry, ys)`` with a leading slot axis; nothing here
-        reads the device back."""
+        feasibility per distinct input set, then the batched group loop
+        (:meth:`_scan`), whose step parts ``trace`` names
+        (``_run_scan``).  Returns the device ``(carry, ys)`` with a
+        leading slot axis; nothing here reads the device back."""
         if self._faults:
             self._faults.fire("dispatch")  # dispatch_exc raises here
         dev = self.device if device is None else torch.device(device)
@@ -1655,7 +1672,21 @@ class TpuSolver:
             k: np.stack([np.asarray(e["np_consts"][k]) for e in entries])
             for k in ("g_zone_spread", "g_zone_anti", "g_zone_paff",
                       "g_host_paff")})
-        return _run_scan(consts, tuple(init), NR, Z, track, flags, trace)
+        return self._scan(consts, tuple(init), NR, Z, track, flags, trace)
+
+    def _scan(self, consts: dict, init: tuple, NR: int, Z: int, track: bool,
+              flags: dict, trace=NULL_TRACE):
+        """The group loop: ``_run_scan`` itself on host tensors; on a CUDA
+        device through its signature's graph (``ScanGraphs``: eager until
+        its eager runs pay for a capture, replayed after), inside a
+        ``scan.capture`` or ``scan.replay`` span where it is not eager."""
+        def scan(c, i):
+            return _run_scan(c, i, NR, Z, track, flags, trace)
+
+        if consts["counts"].device.type != "cuda":
+            return scan(consts, init)
+        return self._scan_graphs.run(scan_key(consts, init, track, flags),
+                                     consts, init, scan, trace)
 
     def _fence(self) -> None:
         """The ``fence`` fault site, fired before every device-to-host read
@@ -1794,9 +1825,10 @@ class TpuSolver:
         enqueue to its read-back, as ``solve_ms``.
 
         ``device_execute`` holds ``device_enqueue`` (uploads, feasibility
-        and the group loop's launches, named by part) and
-        ``device_readback`` (the fence and the device-to-host copies: the
-        host blocked on the device)."""
+        and the group loop: its launches named by part where it runs
+        eagerly or is captured, ``scan.replay`` where its graph is
+        replayed) and ``device_readback`` (the fence and the
+        device-to-host copies: the host blocked on the device)."""
         t0 = time.perf_counter()
         trace = trace or NULL_TRACE
         with trace.span("device_prepare"):
@@ -1846,8 +1878,9 @@ class TpuSolver:
         """Dispatch one device solve WITHOUT reading it back: the uploads
         and the group loop are enqueued on the calling thread's current
         stream, and :meth:`PendingTpuSolve.result` reads back and extracts.
-        The group loop is issued from Python, so the enqueue costs about
-        as much host time as the solve (PERF.md)."""
+        An eager group loop is issued from Python, so its enqueue costs
+        about as much host time as the solve; a replayed one is one graph
+        launch, whose outputs are copies no later replay overwrites."""
         t0 = time.perf_counter()
         trace = trace or NULL_TRACE
         with trace.span("device_dispatch"):

@@ -37,7 +37,12 @@ demo's contended solve launches the fused entry once per price iteration
 and plans as the host does.  The benchmark's hierarchical cell
 (``zonespread-100k``) plans node for node the same traced and untraced on
 the card, at the CPU tests' 2,000 pods and at its full 100,000, and its
-plans keep every guarantee of ``benchmark/reference.py``.
+plans keep every guarantee of ``benchmark/reference.py``.  The group
+loop's CUDA graphs (``solver/scan_graphs.py``): on the benchmark's cells
+the eager first sight, the capture and the replays plan node for node
+alike and count the zone fills alike, two unread async results of one
+graph keep their own values, and a background warm beside the
+foreground's capture and replays plans as eager.
 """
 
 import numpy as np
@@ -580,8 +585,10 @@ def test_profile_attributes_every_kernel_to_a_stage_on_the_card(cuda):
     """``scripts/profile_solve_torch.py`` on a 2,000-pod cut of config 2:
     every kernel of the profiled solve attributed through its runtime
     launch call, the launches counted under ``device_execute`` (its
-    ``device_enqueue`` and the group step's ``step.*`` parts inside it),
-    the named stages covering the wall, the stage clock anchored."""
+    ``device_enqueue``, and inside it ``scan.replay``: the profiled solve
+    is the signature's third, so one graph launch makes its group loop's
+    kernels), the named stages covering the wall, the stage clock
+    anchored."""
     from scripts import profile_solve_torch as ps
 
     doc = ps.measure_solve(None, pods_n=2000, repeats=1, trace_dir=None)
@@ -592,11 +599,11 @@ def test_profile_attributes_every_kernel_to_a_stage_on_the_card(cuda):
     assert sum(r["launches"] for r in rows.values()) == doc["launches"]
     solve_rows = {k: r for k, r in rows.items()
                   if k.split(" > ")[-1] in ("device_execute", "device_enqueue",
-                                            "device_readback")
+                                            "device_readback", "scan.replay")
                   or k.split(" > ")[-1].startswith("step.")}
     assert sum(r["launches"] for r in solve_rows.values()) > 0
     assert sum(r["launches"] for k, r in solve_rows.items()
-               if k.split(" > ")[-1].startswith("step.")) > 0
+               if k.split(" > ")[-1] == "scan.replay") > 0
     assert table["covered"] >= 0.9 and table["profiled_covered"] >= 0.9
     assert abs(table["clock_check_ms"]) < 5.0
 
@@ -715,11 +722,14 @@ def test_config2_solve_plans_the_same_with_the_fill_kernels(cuda,
     assert res_k.infeasible == res_p.infeasible
 
 
-def _hier_burst_plans(monkeypatch, deployments: int, replicas: int):
+def _hier_burst_plans(monkeypatch, deployments: int, replicas: int,
+                      solves: int = 2):
     """The benchmark's ``zonespread-100k`` configuration cut to
     ``deployments`` x ``replicas`` (the full batch at 40 x 2,500), its first
-    pending set of one seed solved twice on the card under ``auto``, once
-    traced: the two plain plans, the set and the reference's candidates."""
+    pending set of one seed solved ``solves`` times on the card under
+    ``auto``, every other one traced: the plain plans, the set, the
+    reference's candidates and, per solve, the group loops it ran and how
+    many of them its signature's graph replayed."""
     import copy
 
     from benchmark import catalog, harness, inputs, reference, workload
@@ -742,19 +752,33 @@ def _hier_burst_plans(monkeypatch, deployments: int, replicas: int):
     index = inputs.index_of(tmpl)
     reg = Registry()
     sched = BatchScheduler(backend="auto", registry=reg, device="cuda")
-    plans = []
+    plans, loops = [], []
     try:
-        for k, trace in enumerate((None, ReqTrace())):
+        for k in range(solves):
+            before = _replays(reg)
             res = sched.solve(inputs.fresh(tmpl, str(k)),
                               [inputs.provisioner(c["config"]["provisioner"])],
-                              inputs.instance_types(records), trace=trace)
+                              inputs.instance_types(records),
+                              trace=ReqTrace() if k % 2 else None)
             plans.append(inputs.plain_plan(res, index, str(k)))
+            loops.append(_replays(reg, before))
     finally:
         sched.stop_warms()
-    assert reg.counter(HIER_SOLVES).get({"path": "hierarchical"}) == 2
+    assert reg.counter(HIER_SOLVES).get({"path": "hierarchical"}) == solves
     cands = reference.Candidates(records, c["config"]["provisioner"],
                                  catalog.ZONES)
-    return plans, pending, cands
+    return plans, pending, cands, loops
+
+
+def _replays(reg, since=(0, 0)) -> tuple:
+    """``(loops, replayed)``: the group loops the registry's graph-replay
+    histogram counted since the reading ``since``, and how many of them a
+    replay of their signature's graph served."""
+    from karpenter_tpu_torch.metrics import SCAN_GRAPH_REPLAYS
+
+    h = reg.histogram(SCAN_GRAPH_REPLAYS)
+    return (sum(h.totals.values()) - since[0],
+            int(sum(h.sums.values())) - since[1])
 
 
 @pytest.mark.parametrize("deployments,replicas", [(8, 250), (40, 2500)])
@@ -765,8 +789,8 @@ def test_hier_burst_plans_the_same_traced_on_the_card(cuda, monkeypatch,
     node for node the same and breaks none of the guarantees."""
     from benchmark import reference
 
-    plans, pending, cands = _hier_burst_plans(monkeypatch, deployments,
-                                              replicas)
+    plans, pending, cands, _loops = _hier_burst_plans(
+        monkeypatch, deployments, replicas)
 
     def nodes(plan):
         return sorted((t, z, ct, pr, tuple(sorted(pods)))
@@ -776,3 +800,165 @@ def test_hier_burst_plans_the_same_traced_on_the_card(cuda, monkeypatch,
     for plan in plans:
         assert reference.check(pending, plan, cands) == dict.fromkeys(
             reference.FAULT_KINDS, 0)
+
+
+# ---- the group loop's CUDA graphs (solver/scan_graphs.py) -----------------
+
+
+def test_zonespread_50k_plans_the_same_eager_captured_and_replayed(cuda):
+    """The four pending sets of ``zonespread-50k`` (one seed), each on a
+    fresh scheduler solved four times: its first sight runs the group
+    loops eagerly, the second captures them, the last two replay them.
+    Every solve plans node for node as the eager one, and launches each
+    zone fill as often (60 band fills and 20 water fills a solve)."""
+    import chip_smoke as cs
+    from benchmark import catalog, harness, inputs, workload
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.metrics import Registry
+    from karpenter_tpu_torch.solver.scheduler import BatchScheduler
+
+    c = harness.cell(harness.manifest(), "zonespread-50k.burst")
+    its = inputs.instance_types(catalog.generate(full=True))
+    prov = inputs.provisioner(c["config"]["provisioner"])
+    for pending in workload.pending_sets(c["config"], c["traffic"],
+                                         2 ** 33 + 41):
+        tmpl = inputs.templates(pending)
+        reg = Registry()
+        sched = BatchScheduler(backend="auto", registry=reg, device="cuda")
+        got = []
+        try:
+            for _ in range(4):
+                cs.names_from()
+                kernels.reset_counts()
+                before = _replays(reg)
+                res = sched.solve(inputs.fresh(tmpl, "0"), [prov], its)
+                torch.cuda.synchronize()
+                got.append((cs.plan(res), res.assignments, res.infeasible,
+                            kernels.counts(), _replays(reg, before)))
+        finally:
+            sched.stop_warms()
+        plan, assignments, infeasible, launches, (loops, replayed) = got[0]
+        assert loops > 0 and replayed == 0
+        assert launches["skew_band_fill"] == 60
+        assert launches["water_fill"] == 20
+        assert got[1][4] == (loops, 0)
+        for later in got[1:]:
+            assert later[0] == plan
+            assert later[1] == assignments and later[2] == infeasible
+            assert later[3] == launches
+        assert got[2][4] == got[3][4] == (loops, loops)
+
+
+def test_hier_burst_replays_the_wave_and_the_tail(cuda, monkeypatch):
+    """``zonespread-100k`` at the CPU tests' size, solved twelve times: the
+    block wave's loop is captured at the second solve, the tail repack's
+    once its eager runs have paid for a capture (``ScanGraphs``), and the
+    last solves replay both and plan node for node as the first."""
+    plans, _pending, _cands, loops = _hier_burst_plans(monkeypatch, 8, 250,
+                                                       solves=12)
+
+    def nodes(plan):
+        return sorted((t, z, ct, pr, tuple(sorted(pods)))
+                      for t, z, ct, pr, pods in plan["nodes"])
+
+    n, replayed = loops[0]
+    assert n >= 2 and replayed == 0          # the wave and the tail
+    assert loops[1] == (n, 0)                # the wave's capture
+    assert loops[-2] == loops[-1] == (n, n)
+    for plan in plans[1:]:
+        assert nodes(plan) == nodes(plans[0])
+
+
+def _spread_tensors(shift: int):
+    """Eight zone-spread deployments of 250 pods whose cpu and memory
+    requests are rotated by ``shift``: the same signature for every
+    shift, other pods to place."""
+    from karpenter_tpu_torch.models import labels as L
+    from karpenter_tpu_torch.models.catalog import generate_catalog
+    from karpenter_tpu_torch.models.instancetype import GIB
+    from karpenter_tpu_torch.models.pod import (
+        LabelSelector,
+        PodSpec,
+        TopologySpreadConstraint,
+    )
+    from karpenter_tpu_torch.models.provisioner import Provisioner
+    from karpenter_tpu_torch.models.tensorize import tensorize
+
+    pods = []
+    for d in range(8):
+        r = (d + shift) % 8
+        sel = LabelSelector.of({"app": f"d{d}"})
+        pods += [PodSpec(
+            name=f"d{d}-{i}", labels={"app": f"d{d}"},
+            requests={"cpu": 0.25 * (1 + r), "memory": (0.5 + r % 6) * GIB},
+            topology_spread=[TopologySpreadConstraint(
+                1, L.ZONE, "DoNotSchedule", sel)],
+            owner_key=f"d{d}") for i in range(250)]
+    return tensorize(pods, [Provisioner(name="default").with_defaults()],
+                     generate_catalog(full=True))
+
+
+def _eager_plan(st):
+    """``st`` solved by a fresh solver: the signature's first sight, an
+    eager group loop."""
+    import chip_smoke as cs
+    from karpenter_tpu_torch.solver.tpu import TpuSolver
+
+    out = TpuSolver(device="cuda").solve(st)
+    return cs.plan(out.result), sorted(out.result.infeasible)
+
+
+def test_async_replays_of_one_graph_keep_their_own_results(cuda):
+    """Two ``solve_async`` dispatches of one signature with other inputs,
+    both replays of its graph, dispatched A then B and read A then B: B's
+    replay does not overwrite A's unread result."""
+    import chip_smoke as cs
+    from karpenter_tpu_torch.metrics import Registry
+    from karpenter_tpu_torch.solver.tpu import TpuSolver
+
+    a, b = _spread_tensors(0), _spread_tensors(3)
+    want_a, want_b = _eager_plan(a), _eager_plan(b)
+    assert want_a != want_b
+    reg = Registry()
+    solver = TpuSolver(device="cuda", registry=reg)
+    assert solver.signature(a) == solver.signature(b)
+    for _ in range(2):                  # first sight, then the capture
+        solver.solve(a)
+    before = _replays(reg)
+    pa = solver.solve_async(a)
+    pb = solver.solve_async(b)
+    ra, rb = pa.result(), pb.result()
+    assert _replays(reg, before) == (2, 2)
+    assert (cs.plan(ra.result), sorted(ra.result.infeasible)) == want_a
+    assert (cs.plan(rb.result), sorted(rb.result.infeasible)) == want_b
+
+
+def test_a_warm_beside_a_capture_and_replays_plans_as_eager(cuda):
+    """A background warm of a signature runs while the foreground solves
+    the same signature: one of them captures the graph, the rest replay
+    it, and every plan is the eager one."""
+    import threading
+
+    import chip_smoke as cs
+    from karpenter_tpu_torch.metrics import Registry
+    from karpenter_tpu_torch.solver.tpu import TpuSolver
+
+    st = _spread_tensors(5)
+    want = _eager_plan(st)
+    reg = Registry()
+    solver = TpuSolver(device="cuda", registry=reg)
+    solver.solve(st)                    # the signature's first sight
+    outs, done = [], threading.Event()
+
+    def warm():
+        outs.append(solver.solve(st))
+
+    assert solver.warm_custom(("graph-warm",), warm,
+                              on_done=lambda *_a: done.set())
+    fore = [solver.solve(st) for _ in range(3)]
+    assert done.wait(600)
+    assert len(outs) == 1
+    for out in fore + outs:
+        assert (cs.plan(out.result), sorted(out.result.infeasible)) == want
+    loops, replayed = _replays(reg)
+    assert loops == 5 and replayed == 3  # eager, one capture, 3 replays

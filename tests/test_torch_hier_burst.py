@@ -93,7 +93,8 @@ def test_the_configuration_is_slice_ones_batch():
     assert p["deployments"] * p["replicas"] == 100_000
     assert p["cpu"] == [0.25 * (1 + d % 8) for d in range(40)]
     assert p["memory_gib"] == [0.5 + d % 6 for d in range(40)]
-    assert {m["name"] for m in c["per_layer"]} == set(HIER_METRICS)
+    assert {m["name"] for m in c["per_layer"]} == set(HIER_METRICS) | {
+        "scan.graph_replay_share"}
     assert {m["name"] for m in c["end_to_end"]} == {
         "pods_per_s", "cost_vs_ffd", "setup_s"}
     # the default threshold routes the full batch hierarchically
